@@ -7,23 +7,41 @@ Drives ``stereo_reconstruction_tpu_torch`` on ``cuda:0`` and fails (exit
 code 1, no result line) if anything is off:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: K1 (``csrc/cost_volume.cu``) with ``nvcc`` for ``sm_90a``;
-3. K1 against its plain PyTorch twin on the card at three shapes —
-   (a) 375x450, D=100, block 17 (MiddEval3 trainingQ), (b) the 1128x1408
-   rectified canvas of a 750x900 pair, D=200, block 17 (the reference's
-   operating point, main.cpp:40), (c) H=21, W=40, WL=49, min_d=2,
-   block 5 — on integer-valued pairs, where the five planes must be bit
-   equal; median kernel and plain ms over 5 timed runs after a warm-up;
+2. build: K1 and K2 (``csrc/cost_volume.cu``) and K3
+   (``csrc/block_search.cu``) with one ``nvcc`` each for ``sm_90a``, all
+   started together;
+3. K1 and K2 against their plain PyTorch twins on the card at three
+   shapes — (a) 375x450, D=100, block 17 (MiddEval3 trainingQ), (b) the
+   1128x1408 rectified canvas of a 750x900 pair, D=200, block 17 (the
+   reference's operating point, main.cpp:40), (c) H=21, W=40, WL=49,
+   min_d=2, block 5 — on integer-valued pairs, where K1's five planes and
+   K2's volume (+inf pattern included) must be bit equal; median kernel
+   and plain ms over 5 timed runs after a warm-up;
 4. the matcher against a literal NumPy recurrence on a small pair;
 5. the slice: ``run_pair(fixed_F=F)`` on a synthetic 750x900 pair with
    a known F at the default config (block 17, D=200, outlier kernel 500),
-   with exactly one K1 launch per call, the three staged artefacts,
-   ``evaldisp`` against the scene's true disparity, and >= 99.5%
-   disparity agreement with the plain backend; median stage times over 3
-   runs after a warm-up.
+   with exactly one K1 launch and no K2 or K3 launch per call, the three
+   staged artefacts, ``evaldisp`` against the scene's true disparity, and
+   >= 99.5% disparity agreement with the plain backend; median stage
+   times over 3 runs after a warm-up;
+6. K2's path on the slice's own rectified canvas, as
+   ``tools/tpu_validate.py`` runs it: the volume, reduced to a disparity
+   by the exact row scan. ``volume_reductions`` of K2's volume must equal
+   K1's five planes, and the disparity the K1 route's, bit for bit;
+7. K3 against its twin on integer-valued pairs, bit equal: shape (c),
+   two tiles with a tile width that does not divide W at
+   ``row_smooth_iters`` 1, 2, 3 and every ``smooth_mode``, and three
+   512-wide tiles at block 17;
+8. K3's path at full width: the rectified canvas, D=200, block 17,
+   ``tile_width`` 512 (3 tiles), >= 99.5% agreement with its twin (the
+   canvas is not integer-valued) and >= 98% with the exact K1 route (the
+   JAX package's two-tile bound, tests/test_pallas_kernel.py); median K3
+   and twin ms over 5 runs.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+Each path (5, 6, 8) runs with every launch count set to 0 just before it
+and read just after; the launches made to compare a kernel with its twin
+are not counted. The line before the last is ``{"kernels": [...]}``; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -78,6 +96,14 @@ def _median_ms(fn, torch):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def _max_abs_err(got, want):
+    """Largest |got - want| over the entries where want is finite."""
+    fin = want.isfinite()
+    if not fin.any():
+        return 0.0
+    return float((got[fin].double() - want[fin].double()).abs().max())
 
 
 def _sequential_reference(left, right, block_size, max_d, sf=0.9):
@@ -184,6 +210,7 @@ def main() -> int:
     from stereo_reconstruction_tpu_torch.io.mesh_io import read_off
     from stereo_reconstruction_tpu_torch.io.pfm import read_pfm
     from stereo_reconstruction_tpu_torch.kernels import build
+    from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
     from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
     from stereo_reconstruction_tpu_torch.ops import smoothing
     from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
@@ -193,6 +220,12 @@ def main() -> int:
     from stereo_reconstruction_tpu_torch.rectify.rectifier import rectify_pair
 
     dev = torch.device("cuda", 0)
+
+    def reset_counts():
+        ccv.LAUNCHES = ccv.VOLUME_LAUNCHES = cbs.LAUNCHES = 0
+
+    def counts():
+        return {"K1": ccv.LAUNCHES, "K2": ccv.VOLUME_LAUNCHES, "K3": cbs.LAUNCHES}
 
     # 1. device
     smi = subprocess.run(
@@ -205,19 +238,19 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     build.load_library()
-    print(f"[build] K1 loaded in {time.perf_counter() - t0:.2f} s "
+    print(f"[build] K1, K2, K3 loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.BUILD_INFO.get('seconds', 0.0):.2f} s)")
     for line in build.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "entry function" in line:
             print(f"[build] {line.strip()}")
 
-    # 3. K1 vs its plain twin on the card
+    # 3. K1 and K2 vs their plain twins on the card
     shapes = {
         "a": dict(h=375, w=450, wl_extra=0, bs=17, min_d=0, max_d=100),
         "b": dict(h=1128, w=1408, wl_extra=0, bs=17, min_d=0, max_d=200),
         "c": dict(h=21, w=40, wl_extra=9, bs=5, min_d=2, max_d=12),
     }
-    max_err = 0.0
+    max_err = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     times = {}
     for key, s in shapes.items():
         rng = np.random.default_rng(SEED)
@@ -231,14 +264,26 @@ def main() -> int:
         for name, g, w in zip(("m0", "a0", "c_zero", "diag_up", "diag_lf"), got, want):
             if g.dtype != w.dtype or not torch.equal(g, w):
                 raise AssertionError(f"K1 != plain at shape ({key}), plane {name}")
-            fin = torch.isfinite(w) if w.is_floating_point() else torch.ones_like(w, dtype=torch.bool)
-            if fin.any():
-                max_err = max(max_err, float((g[fin].double() - w[fin].double()).abs().max()))
+            max_err["K1"] = max(max_err["K1"], _max_abs_err(g, w))
         k_ms = _median_ms(lambda: ccv.matcher_inputs(*args), torch)
         p_ms = _median_ms(lambda: ccv.matcher_inputs_plain(*args), torch)
-        times[key] = (k_ms, p_ms)
+        times["K1", key] = (k_ms, p_ms)
         print(f"[kernel] shape ({key}) {s}: 5 planes bit-equal; "
               f"K1 {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPEATS})",
+              flush=True)
+        got = ccv.cost_volume(*args)
+        want = ccv.cost_volume_right_ssd(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 != plain at shape ({key}): "
+                                 f"{(got != want).float().mean().item():.3%} of entries")
+        max_err["K2"] = max(max_err["K2"], _max_abs_err(got, want))
+        del got, want
+        k_ms = _median_ms(lambda: ccv.cost_volume(*args), torch)
+        p_ms = _median_ms(lambda: ccv.cost_volume_right_ssd(*args), torch)
+        times["K2", key] = (k_ms, p_ms)
+        print(f"[kernel] shape ({key}): volume bit-equal, +inf pattern included; "
+              f"K2 {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPEATS})",
               flush=True)
 
     # 4. the matcher (K1 + row scan) against a literal NumPy recurrence
@@ -266,14 +311,15 @@ def main() -> int:
     config = PipelineConfig()
     plain_config = config.replace(matcher=MatcherConfig(backend="xla"))
 
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.reset_peak_memory_stats(dev)
-        ccv.LAUNCHES = 0
+        reset_counts()
         res = run_pair(pair, config, output_dir=tmp, write_mesh=True, fixed_F=F,
                        device=dev)
-        launches = ccv.LAUNCHES
-        if launches != 1:
-            raise AssertionError(f"run_pair launched K1 {launches} times, not once")
+        if counts() != {"K1": 1, "K2": 0, "K3": 0}:
+            raise AssertionError(f"run_pair launches {counts()}: want one K1 only")
+        launches["K1"] = counts()["K1"]
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         disp = res.disparity
         if disp.shape != (750, 900) or not np.isfinite(disp).all():
@@ -300,12 +346,11 @@ def main() -> int:
     stage = {"kernel": [], "plain": []}
     disp_plain = None
     for which in ("kernel", "plain", "plain", "kernel", "kernel", "plain", "plain", "kernel"):
-        before = ccv.LAUNCHES
+        reset_counts()
         r = run_pair(pair, config if which == "kernel" else plain_config,
                      fixed_F=F, device=dev)
-        expect = before + (which == "kernel")
-        if ccv.LAUNCHES != expect:
-            raise AssertionError(f"{which} run_pair: K1 launches {ccv.LAUNCHES - before}")
+        if counts() != {"K1": int(which == "kernel"), "K2": 0, "K3": 0}:
+            raise AssertionError(f"{which} run_pair: launches {counts()}")
         if which == "kernel" and not np.array_equal(r.disparity, disp):
             raise AssertionError("run_pair is not deterministic")
         if which == "plain":
@@ -334,17 +379,103 @@ def main() -> int:
     print(f"[slice] disparity stage parts on the {tuple(rect.canvas)} canvas: "
           f"K1 {k1_rect_ms:.3f} ms, row scan {scan_ms:.2f} ms")
 
-    k_ms, p_ms = times["b"]
+    # 6. K2's path on the same canvas, as tools/tpu_validate.py runs it
+    reset_counts()
+    volume = ccv.cost_volume(rect.left, rect.right, 17, 0, 200)
+    disp_k2 = smoothing.smoothed_argmin_reference(volume, black, smooth_factor=0.9,
+                                                  d_first=0)
+    torch.cuda.synchronize()
+    if counts() != {"K1": 0, "K2": 1, "K3": 0}:
+        raise AssertionError(f"K2 path launches {counts()}: want one K2 only")
+    launches["K2"] = counts()["K2"]
+    if disp_k2.shape != tuple(rect.canvas) or not torch.isfinite(disp_k2).all():
+        raise AssertionError(f"K2 path: bad disparity {tuple(disp_k2.shape)}")
+    for name, g, w in zip(("m0", "a0", "c_zero", "diag_up", "diag_lf"),
+                          smoothing.volume_reductions(volume, 0), planes):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"volume_reductions(K2) != K1 on the canvas, plane {name}")
+    del volume
+    disp_k1 = block_search_right(rect.left, rect.right, MatcherConfig())
+    if not torch.equal(disp_k2, disp_k1):
+        raise AssertionError("K2 route disparity != K1 route disparity on the canvas")
+    print(f"[K2 path] {tuple(rect.canvas)} canvas D=200: volume_reductions(K2) equal "
+          f"K1's 5 planes and smoothed_argmin_reference(K2) equals the K1 route, "
+          f"bit for bit", flush=True)
+
+    # 7. K3 vs its plain twin on integer-valued pairs
+    k3_cases = [dict(h=21, w=40, wl_extra=9, bs=5, min_d=2, max_d=12, tw=512,
+                     iters=2, mode="reference")]
+    k3_cases += [dict(h=20, w=90, wl_extra=0, bs=5, min_d=0, max_d=8, tw=64,
+                      iters=iters, mode=mode)
+                 for iters in (1, 2, 3) for mode in ("reference", "intended", "none")]
+    k3_cases += [dict(h=64, w=1100, wl_extra=0, bs=17, min_d=0, max_d=64, tw=512,
+                      iters=2, mode="reference")]
+    for c in k3_cases:
+        rng = np.random.default_rng(SEED)
+        left_np, right_np = _random_stereo(rng, c["h"], c["w"], wl_extra=c["wl_extra"])
+        left = torch.from_numpy(left_np).to(dev, torch.float32)
+        right = torch.from_numpy(right_np).to(dev, torch.float32)
+        cfg = MatcherConfig(block_size=c["bs"], min_disparity=c["min_d"],
+                            max_disparity=c["max_d"], row_smooth_iters=c["iters"])
+        got = cbs.block_search_fused(left, right, cfg, c["tw"], c["mode"])
+        want = cbs.block_search_fused_plain(left, right, cfg, c["tw"], c["mode"])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 != plain on {c}: "
+                                 f"{(got != want).float().mean().item():.3%} of pixels")
+        max_err["K3"] = max(max_err["K3"], _max_abs_err(got, want))
+    print(f"[kernel] K3 bit-equal to its twin on {len(k3_cases)} integer cases "
+          f"(tiles 1-3, iters 1-3, all smooth modes, min_d 2)", flush=True)
+
+    # 8. K3's path at full width on the canvas
+    cfg = MatcherConfig()                      # block 17, D=200, 2 sweeps
+    reset_counts()
+    disp_k3 = cbs.block_search_fused(rect.left, rect.right, cfg)
+    torch.cuda.synchronize()
+    if counts() != {"K1": 0, "K2": 0, "K3": 1}:
+        raise AssertionError(f"K3 path launches {counts()}: want one K3 only")
+    launches["K3"] = counts()["K3"]
+    if disp_k3.shape != tuple(rect.canvas) or not torch.isfinite(disp_k3).all():
+        raise AssertionError(f"K3 path: bad disparity {tuple(disp_k3.shape)}")
+    twin = cbs.block_search_fused_plain(rect.left, rect.right, cfg)
+    agree_twin = float((disp_k3 == twin).double().mean())
+    agree_exact = float((disp_k3 == disp_k1).double().mean())
+    print(f"[K3 path] {tuple(rect.canvas)} canvas D=200 tile 512 "
+          f"({-(-rect.canvas[1] // 512)} tiles): agreement {agree_twin:.6f} with "
+          f"its twin, {agree_exact:.6f} with the exact K1 route", flush=True)
+    if agree_twin < 0.995:
+        raise AssertionError(f"K3 vs twin agreement {agree_twin:.4%} < 99.5%")
+    if agree_exact < 0.98:
+        raise AssertionError(f"K3 vs exact route agreement {agree_exact:.4%} < 98%")
+    k3_ms = _median_ms(lambda: cbs.block_search_fused(rect.left, rect.right, cfg), torch)
+    k3_plain_ms = _median_ms(
+        lambda: cbs.block_search_fused_plain(rect.left, rect.right, cfg), torch)
+    times["K3", "canvas"] = (k3_ms, k3_plain_ms)
+    print(f"[K3 path] K3 {k3_ms:.2f} ms, plain twin {k3_plain_ms:.2f} ms "
+          f"(median of {REPEATS}); the exact route on this canvas: K1 "
+          f"{k1_rect_ms:.3f} ms + row scan {scan_ms:.2f} ms", flush=True)
+
+    cv_src = "stereo_reconstruction_tpu_torch/csrc/cost_volume.cuh"
+    kernels = [
+        ("K1", "fused matcher inputs", cv_src,
+         "stereo_reconstruction_tpu/ops/pallas_cost_volume.py:68", ("K1", "b")),
+        ("K2", "cost volume", cv_src,
+         "stereo_reconstruction_tpu/ops/pallas_cost_volume.py:68", ("K2", "b")),
+        ("K3", "fused block search",
+         "stereo_reconstruction_tpu_torch/csrc/block_search.cuh",
+         "stereo_reconstruction_tpu/ops/pallas_block_search.py:48", ("K3", "canvas")),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "K1 fused matcher inputs",
+        "name": f"{k} {name}",
         "route": "cuda",
-        "source": "stereo_reconstruction_tpu_torch/csrc/cost_volume.cuh",
-        "replaces": "stereo_reconstruction_tpu/ops/pallas_cost_volume.py:68",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+        "source": src,
+        "replaces": replaces,
+        "launches": launches[k],
+        "max_abs_err": max_err[k],
+        "ms": times[key][0],
+        "plain_ms": times[key][1],
+        "at": "1128x1408 canvas, D=200, block 17",
+    } for k, name, src, replaces, key in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

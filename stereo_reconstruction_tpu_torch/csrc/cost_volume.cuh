@@ -1,32 +1,38 @@
-// K1 — fused Right-variant SSD matcher inputs, CUDA C++ for Hopper (sm_90a).
+// K1 and K2 — the Right-variant SSD cost, CUDA C++ for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel stereo_reconstruction_tpu/ops/
-// pallas_cost_volume.py::_kernel in mode "inputs" (wrapper
-// pallas_matcher_inputs). For every output pixel (y, x) of the right image
-// and every plane j in [0, D) (disparity d = min_d + j) it forms the
+// Both replace the Pallas TPU kernel stereo_reconstruction_tpu/ops/
+// pallas_cost_volume.py::_kernel: K1 its mode "inputs" (wrapper
+// pallas_matcher_inputs), K2 its mode "volume" (wrapper
+// pallas_cost_volume_right_ssd). For every output pixel (y, x) of the right
+// image and every plane j in [0, D) (disparity d = min_d + j) they form the
 // reference cost (BlockSearch.cpp:116-158)
 //
 //   cost = sqrt(SSD over [y-hbs, y+hbs) x [x-hbs, x+hbs) clipped to
 //               [0, H-1) x [0, W-1)) * (1 / area),
-//   +inf where area <= 0 or x + d + min(W-1-x, hbs) >= WL,
+//   +inf where area <= 0 or x + d + min(W-1-x, hbs) >= WL.
 //
-// and folds the planes, in increasing j, into five register accumulators:
+// K1 folds the planes, in increasing j, into five register accumulators:
 // m0 (min), a0 (first argmin, strict <), c_zero (plane j == -min_d),
-// diag_up (plane with d == x) and diag_lf (plane with d == x - 1). The
-// (D, H, W) volume is never written.
+// diag_up (plane with d == x) and diag_lf (plane with d == x - 1); the
+// (D, H, W) volume is never written. K2 stores every plane, cost[j, y, x],
+// coalesced along x.
 //
 // Design: one CTA owns a 16 x 64 output tile. It stages the right band
-// (tile + 2*hbs halo) in shared memory once; for each d it writes the
-// masked channel-summed squared difference of the band to shared memory,
-// takes the vertical then the horizontal 2*hbs window sums there, and each
-// thread folds the cost of its 4 output pixels into registers. No atomics
+// (tile + 2*hbs halo) in shared memory once; for each d, plane_costs()
+// writes the masked channel-summed squared difference of the band to
+// shared memory, takes the vertical then the horizontal 2*hbs window sums
+// there, and hands each thread the cost of its 4 output pixels. The two
+// kernels differ only in what they do with those costs, so K1's planes
+// equal the reductions of K2's volume bit for bit on any input. No atomics
 // and no cross-CTA reduction: every output pixel belongs to one thread.
 // Left pixels are read through L1 (neighbouring d reuse them).
 //
-// Bound: about H*W*D*(9 + 2*2*hbs) flops against images read once, so it
-// is compute-bound (shared-memory adds and issue). Later work: sliding
-// window sums instead of full 2*hbs re-sums, and a ring of D chunks with
-// TMA-staged left bands.
+// Bound: about H*W*D*(9 + 2*2*hbs) flops against images read once, so K1
+// is compute-bound (shared-memory adds and issue). K2 adds D*H*W*4 bytes
+// of stores (1.27 GB at 1128x1408, D=200: ~0.4 ms at 3.35 TB/s) to the
+// same compute, so it too is compute-bound and should take about K1's
+// time. Later work: sliding window sums instead of full 2*hbs re-sums, and
+// a ring of D chunks with TMA-staged left bands.
 //
 // Numerics: every add and multiply is an explicit round-to-nearest
 // intrinsic (no FMA contraction), 1/area is multiplied, not divided, and
@@ -45,6 +51,131 @@ constexpr int kTileY = 16;
 constexpr int kThreads = 256;
 constexpr int kRowsPerThread = kTileY / (kThreads / kTileX);   // 4
 
+// Shared-memory bytes of one CTA of K1 or K2.
+inline size_t cost_tile_smem(int hbs) {
+  const size_t rows = kTileY + 2 * hbs;
+  const size_t cols = kTileX + 2 * hbs;
+  return sizeof(float) * (rows * cols * 4 + kTileY * cols);
+}
+
+// One CTA's share of the cost: its tile, the staged right band, and each
+// thread's 4 pixels (column x, rows y0 + ty + 4 * k).
+struct CostTile {
+  float* r_s;   // rows * cols * 3: right band
+  float* s_s;   // rows * cols: masked dsq of the current plane
+  float* v_s;   // kTileY * cols: vertical window sums
+  int rows, cols, x0, y0, tx, ty, x, rgt;
+  float inv_area[kRowsPerThread];
+  bool pos_area[kRowsPerThread];
+};
+
+// Stage the right band and each thread's window geometry. The first
+// plane_costs() call synchronises before anything reads the band.
+__device__ __forceinline__ void cost_tile_init(CostTile& t, float* smem,
+                                               const float* __restrict__ right,
+                                               int H, int W, int hbs) {
+  const int hw = 2 * hbs;
+  t.rows = kTileY + hw;   // band row r <-> global row y0 - hbs + r
+  t.cols = kTileX + hw;   // band col c <-> global col x0 - hbs + c
+  t.r_s = smem;
+  t.s_s = t.r_s + t.rows * t.cols * 3;
+  t.v_s = t.s_s + t.rows * t.cols;
+  t.x0 = blockIdx.x * kTileX;
+  t.y0 = blockIdx.y * kTileY;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < t.rows * t.cols; i += kThreads) {
+    const int gy = t.y0 - hbs + i / t.cols;
+    const int gx = t.x0 - hbs + i % t.cols;
+    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    for (int ch = 0; ch < 3; ++ch)
+      t.r_s[i * 3 + ch] = in ? right[((size_t)gy * W + gx) * 3 + ch] : 0.0f;
+  }
+
+  t.tx = tid % kTileX;
+  t.ty = tid / kTileX;    // this thread's rows: ty + 4 * k
+  t.x = t.x0 + t.tx;
+  const int lft = min(t.x, hbs);
+  t.rgt = min(W - 1 - t.x, hbs);
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int y = t.y0 + t.ty + (kThreads / kTileX) * k;
+    const int up = min(y, hbs);
+    const int down = min(H - 1 - y, hbs);
+    const float area = (float)((lft + t.rgt) * (up + down));
+    t.pos_area[k] = area > 0.0f;
+    t.inv_area[k] = __fdiv_rn(1.0f, fmaxf(area, 1.0f));
+  }
+}
+
+// Number of planes j for which the tile's first column still has a
+// candidate. x + min(W-1-x, hbs) never decreases with x, so no pixel of
+// the tile has a candidate at j or beyond: those planes are all +inf.
+__device__ __forceinline__ int cost_tile_planes(const CostTile& t, int W,
+                                                int WL, int hbs, int min_d,
+                                                int D) {
+  const int reach0 = t.x0 + min(W - 1 - t.x0, hbs);
+  return max(0, min(D, WL - reach0 - min_d));
+}
+
+// The costs of one plane at a thread's 4 pixels.
+struct PlaneCosts {
+  float v[kRowsPerThread];
+};
+
+// The cost of disparity d at this thread's 4 pixels, +inf where invalid.
+// Every thread of the CTA must call it: it synchronises.
+__device__ __forceinline__ PlaneCosts plane_costs(const CostTile& t,
+                                                  const float* __restrict__ left,
+                                                  int H, int W, int WL,
+                                                  int hbs, int d) {
+  PlaneCosts plane;
+  const float kInf = __int_as_float(0x7f800000);
+  const int hw = 2 * hbs;
+  const int tid = threadIdx.x;
+  __syncthreads();               // band staged / previous plane consumed
+
+  for (int i = tid; i < t.rows * t.cols; i += kThreads) {
+    const int gy = t.y0 - hbs + i / t.cols;
+    const int gx = t.x0 - hbs + i % t.cols;
+    float v = 0.0f;
+    if (gy >= 0 && gy < H - 1 && gx >= 0 && gx < W - 1) {
+      const int lx = gx + d;
+      const float* rp = t.r_s + i * 3;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const float l =
+            lx < WL ? __ldg(left + ((size_t)gy * WL + lx) * 3 + ch) : 0.0f;
+        const float diff = __fsub_rn(l, rp[ch]);
+        v = __fadd_rn(v, __fmul_rn(diff, diff));
+      }
+    }
+    t.s_s[i] = v;
+  }
+  __syncthreads();
+
+  for (int i = tid; i < kTileY * t.cols; i += kThreads) {
+    const int r = i / t.cols;
+    const int c = i % t.cols;
+    float acc = 0.0f;
+    for (int q = 0; q < hw; ++q) acc = __fadd_rn(acc, t.s_s[(r + q) * t.cols + c]);
+    t.v_s[i] = acc;
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int r = t.ty + (kThreads / kTileX) * k;
+    float h = 0.0f;
+    for (int q = 0; q < hw; ++q) h = __fadd_rn(h, t.v_s[r * t.cols + t.tx + q]);
+    const float cost = __fmul_rn(__fsqrt_rn(fmaxf(h, 0.0f)), t.inv_area[k]);
+    const bool valid = t.pos_area[k] && (t.x + d + t.rgt < WL);
+    plane.v[k] = valid ? cost : kInf;
+  }
+  return plane;
+}
+
+// K1: the five smoothing-scan planes.
 __global__ void __launch_bounds__(kThreads)
 matcher_inputs_kernel(const float* __restrict__ left,    // (H, WL, 3)
                       const float* __restrict__ right,   // (H, W, 3)
@@ -54,44 +185,14 @@ matcher_inputs_kernel(const float* __restrict__ left,    // (H, WL, 3)
                       int H, int W, int WL, int hbs, int min_d, int D) {
   extern __shared__ float smem[];
   const float kInf = __int_as_float(0x7f800000);
-  const int hw = 2 * hbs;
-  const int rows = kTileY + hw;   // band row r <-> global row y0 - hbs + r
-  const int cols = kTileX + hw;   // band col c <-> global col x0 - hbs + c
-  float* r_s = smem;                          // rows * cols * 3: right band
-  float* s_s = r_s + rows * cols * 3;         // rows * cols: masked dsq
-  float* v_s = s_s + rows * cols;             // kTileY * cols: vertical sums
+  CostTile t;
+  cost_tile_init(t, smem, right, H, W, hbs);
 
-  const int x0 = blockIdx.x * kTileX;
-  const int y0 = blockIdx.y * kTileY;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < rows * cols; i += kThreads) {
-    const int gy = y0 - hbs + i / cols;
-    const int gx = x0 - hbs + i % cols;
-    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    for (int ch = 0; ch < 3; ++ch)
-      r_s[i * 3 + ch] = in ? right[((size_t)gy * W + gx) * 3 + ch] : 0.0f;
-  }
-
-  const int tx = tid % kTileX;
-  const int ty = tid / kTileX;    // this thread's rows: ty + 4 * k
-  const int x = x0 + tx;
-  const int lft = min(x, hbs);
-  const int rgt = min(W - 1 - x, hbs);
-
-  float inv_area[kRowsPerThread];
-  bool pos_area[kRowsPerThread];
   float acc_m0[kRowsPerThread], acc_cz[kRowsPerThread];
   float acc_du[kRowsPerThread], acc_dl[kRowsPerThread];
   int acc_a0[kRowsPerThread];
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) {
-    const int y = y0 + ty + (kThreads / kTileX) * k;
-    const int up = min(y, hbs);
-    const int down = min(H - 1 - y, hbs);
-    const float area = (float)((lft + rgt) * (up + down));
-    pos_area[k] = area > 0.0f;
-    inv_area[k] = __fdiv_rn(1.0f, fmaxf(area, 1.0f));
     acc_m0[k] = kInf;
     acc_a0[k] = 0;
     acc_cz[k] = kInf;
@@ -99,66 +200,29 @@ matcher_inputs_kernel(const float* __restrict__ left,    // (H, WL, 3)
     acc_dl[k] = kInf;
   }
 
-  // x + min(W-1-x, hbs) never decreases with x, so once the tile's first
-  // column has no candidate at d, no pixel of the tile has one at d or
-  // beyond: the remaining planes are all +inf and change no accumulator.
-  const int reach0 = x0 + min(W - 1 - x0, hbs);
-
-  for (int j = 0; j < D; ++j) {
+  // the planes past j_end are all +inf and change no accumulator
+  const int j_end = cost_tile_planes(t, W, WL, hbs, min_d, D);
+  const int x = t.x;
+  for (int j = 0; j < j_end; ++j) {
     const int d = min_d + j;
-    if (reach0 + d >= WL) break;   // uniform across the CTA
-    __syncthreads();               // band staged / previous plane consumed
-
-    for (int i = tid; i < rows * cols; i += kThreads) {
-      const int gy = y0 - hbs + i / cols;
-      const int gx = x0 - hbs + i % cols;
-      float v = 0.0f;
-      if (gy >= 0 && gy < H - 1 && gx >= 0 && gx < W - 1) {
-        const int lx = gx + d;
-        const float* rp = r_s + i * 3;
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-          const float l =
-              lx < WL ? __ldg(left + ((size_t)gy * WL + lx) * 3 + ch) : 0.0f;
-          const float diff = __fsub_rn(l, rp[ch]);
-          v = __fadd_rn(v, __fmul_rn(diff, diff));
-        }
-      }
-      s_s[i] = v;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < kTileY * cols; i += kThreads) {
-      const int r = i / cols;
-      const int c = i % cols;
-      float acc = 0.0f;
-      for (int q = 0; q < hw; ++q) acc = __fadd_rn(acc, s_s[(r + q) * cols + c]);
-      v_s[i] = acc;
-    }
-    __syncthreads();
-
+    const PlaneCosts plane = plane_costs(t, left, H, W, WL, hbs, d);
 #pragma unroll
     for (int k = 0; k < kRowsPerThread; ++k) {
-      const int r = ty + (kThreads / kTileX) * k;
-      float h = 0.0f;
-      for (int q = 0; q < hw; ++q) h = __fadd_rn(h, v_s[r * cols + tx + q]);
-      const float cost = __fmul_rn(__fsqrt_rn(fmaxf(h, 0.0f)), inv_area[k]);
-      const bool valid = pos_area[k] && (x + d + rgt < WL);
-      const float plane = valid ? cost : kInf;
-      if (plane < acc_m0[k]) {
-        acc_m0[k] = plane;
+      const float c = plane.v[k];
+      if (c < acc_m0[k]) {
+        acc_m0[k] = c;
         acc_a0[k] = j;
       }
-      if (j == -min_d) acc_cz[k] = plane;
-      if (x == d) acc_du[k] = plane;
-      if (x - 1 == d) acc_dl[k] = plane;
+      if (j == -min_d) acc_cz[k] = c;
+      if (x == d) acc_du[k] = c;
+      if (x - 1 == d) acc_dl[k] = c;
     }
   }
 
   if (x >= W) return;
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) {
-    const int y = y0 + ty + (kThreads / kTileX) * k;
+    const int y = t.y0 + t.ty + (kThreads / kTileX) * k;
     if (y >= H) continue;
     const size_t o = (size_t)y * W + x;
     m0[o] = acc_m0[k];
@@ -166,6 +230,36 @@ matcher_inputs_kernel(const float* __restrict__ left,    // (H, WL, 3)
     cz[o] = acc_cz[k];
     du[o] = acc_du[k];
     dl[o] = acc_dl[k];
+  }
+}
+
+// K2: the full (D, H, W) volume.
+__global__ void __launch_bounds__(kThreads)
+cost_volume_kernel(const float* __restrict__ left,    // (H, WL, 3)
+                   const float* __restrict__ right,   // (H, W, 3)
+                   float* __restrict__ cost,          // (D, H, W)
+                   int H, int W, int WL, int hbs, int min_d, int D) {
+  extern __shared__ float smem[];
+  const float kInf = __int_as_float(0x7f800000);
+  CostTile t;
+  cost_tile_init(t, smem, right, H, W, hbs);
+
+  const int j_end = cost_tile_planes(t, W, WL, hbs, min_d, D);
+  const bool col_in = t.x < W;
+  for (int j = 0; j < D; ++j) {
+    PlaneCosts plane;
+    if (j < j_end) {               // uniform across the CTA
+      plane = plane_costs(t, left, H, W, WL, hbs, min_d + j);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRowsPerThread; ++k) plane.v[k] = kInf;
+    }
+    if (!col_in) continue;
+#pragma unroll
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      const int y = t.y0 + t.ty + (kThreads / kTileX) * k;
+      if (y < H) cost[((size_t)j * H + y) * W + t.x] = plane.v[k];
+    }
   }
 }
 

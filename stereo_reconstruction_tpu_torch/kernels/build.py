@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels.
 
-All ``csrc/*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, which is loaded with ``ctypes``
-(no PyTorch headers, so a build takes seconds). The library lands in
+Each ``csrc/*.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``,
+all of them at once, and the objects are linked into one shared library
+with a plain C interface, which is loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds). The library lands in
 ``build/stpu_torch_kernels/<source-hash>/`` at the root of the checkout
 and is built on first use only. A missing ``nvcc`` or a failed build
 raises: there is no fallback.
@@ -22,8 +23,9 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "stpu_torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _LIB = None
 BUILD_INFO: dict = {}
@@ -59,19 +61,35 @@ def library_path() -> Path:
         return lib
     nvcc = _find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    work = Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        objs = [work / f"{src.stem}.o" for src in cu]
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                             for src, obj in zip(cu, objs))]
+        log = ""
+        failed = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = work / lib.name
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    BUILD_INFO.update(seconds=seconds, log=proc.stdout + proc.stderr)
+    (out_dir / "build.log").write_text(log)
+    BUILD_INFO.update(seconds=seconds, log=log)
     return lib
 
 
@@ -85,5 +103,10 @@ def load_library() -> ctypes.CDLL:
         lib.stpu_matcher_inputs.argtypes = [p, p, p, p, p, p, p,
                                             i, i, i, i, i, i, p]
         lib.stpu_matcher_inputs.restype = i
+        lib.stpu_cost_volume.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.stpu_cost_volume.restype = i
+        lib.stpu_block_search.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                          i, i, ctypes.c_float, i, i, p]
+        lib.stpu_block_search.restype = i
         _LIB = lib
     return _LIB

@@ -2,7 +2,8 @@
 BlockSearch::computeDisparityMapRight, BlockSearch.cpp:88-179).
 
 Port of ``stereo_reconstruction_tpu/ops/block_search.py::block_search_right``
-for the SSD cost with ``min_disparity >= 0``:
+for the SSD cost with ``min_disparity >= 0`` (a negative one raises on
+every backend: the JAX reference is wrong there, ROADMAP Queue 3):
 
   * kernel backend: K1 (``ops/cuda_cost_volume.py``) emits the five
     smoothing-scan planes directly, then the exact row scan;
@@ -47,10 +48,13 @@ def block_search_right(
             f"cost={config.cost!r}, var_block={config.var_block} not ported yet")
     kernel = use_kernel(config, right.device)
     if config.min_disparity < 0:
-        if kernel:
-            raise NotImplementedError("K2 not ported yet")
+        # the JAX package's answers there cannot be checked: its Pallas cost
+        # volume keeps the wrong columns for a negative shift, its XLA one
+        # clamps negative starts to d = 0, and its oracle slices negative
+        # column starts (ROADMAP, Queue 3)
         raise NotImplementedError(
-            "min_disparity < 0 needs smoothing.smoothed_argmin, not ported yet")
+            "min_disparity < 0: the JAX reference is wrong there, so the port "
+            "refuses it on every backend")
     left = left.to(torch.float32)
     right = right.to(torch.float32)
     black = cv.black_pixel_mask(right)

@@ -1,14 +1,24 @@
-"""K1: the fused matcher-inputs kernel (``csrc/cost_volume.cuh``), its
-plain PyTorch twin, and the wrapper that picks between them by device.
+"""K1 and K2, the Right-variant SSD cost kernels (``csrc/cost_volume.cuh``),
+their plain PyTorch twins, and the wrappers that pick between them by
+device.
 
-Replaces ``stereo_reconstruction_tpu/ops/pallas_cost_volume.py::_kernel``
-in mode ``"inputs"`` (``pallas_matcher_inputs``): the Right-variant SSD
-cost of every disparity plane is folded on the fly into the five (H, W)
-planes of the exact smoothing scan (``ops/smoothing.py``), so the
-(D, H, W) volume is never written.
+Both replace ``stereo_reconstruction_tpu/ops/pallas_cost_volume.py::_kernel``:
 
-The wrapper takes the plain twin only for CPU tensors. A CUDA tensor
-launches the kernel or raises; nothing falls back.
+* K1, mode ``"inputs"`` (``pallas_matcher_inputs``): the cost of every
+  disparity plane is folded on the fly into the five (H, W) planes of the
+  exact smoothing scan (``ops/smoothing.py``), so the (D, H, W) volume is
+  never written. Wrapper ``matcher_inputs``, count ``LAUNCHES``.
+* K2, mode ``"volume"`` (``pallas_cost_volume_right_ssd``): the full
+  (D, H, W) volume, +inf = invalid. Wrapper ``cost_volume``, count
+  ``VOLUME_LAUNCHES``; its twin is ``ops/cost_volume.py::
+  cost_volume_right_ssd``.
+
+The two kernels share the per-plane cost routine, so ``volume_reductions``
+of K2's volume equals K1's planes bit for bit on any input.
+
+A wrapper takes the plain twin only for CPU tensors. A CUDA tensor
+launches the kernel or raises; nothing falls back. ``min_disparity < 0``
+raises ``ValueError`` on every device.
 """
 
 from __future__ import annotations
@@ -18,8 +28,10 @@ import torch
 from stereo_reconstruction_tpu_torch.ops.cost_volume import cost_volume_right_ssd
 from stereo_reconstruction_tpu_torch.ops.smoothing import volume_reductions
 
-# kernel launches made by ``matcher_inputs`` (the plain twin never counts)
+# kernel launches made by ``matcher_inputs`` (K1) and ``cost_volume`` (K2);
+# the plain twins never count
 LAUNCHES = 0
+VOLUME_LAUNCHES = 0
 
 
 def matcher_inputs_plain(left, right, block_size: int = 17,
@@ -35,35 +47,15 @@ def matcher_inputs(left, right, block_size: int = 17,
     """The five smoothing-scan inputs for left (H, W_l, 3) and right
     (H, W, 3) images: the plain twin for CPU tensors, K1 for CUDA tensors.
     uint8 images are cast to float32."""
+    global LAUNCHES
     if left.device.type == "cpu" and right.device.type == "cpu":
         return matcher_inputs_plain(left, right, block_size, min_disparity,
                                     max_disparity)
-    return _launch(left, right, block_size, min_disparity, max_disparity)
-
-
-def _launch(left, right, block_size, min_disparity, max_disparity):
-    global LAUNCHES
-    if left.device != right.device or left.device.type != "cuda":
-        raise ValueError(
-            f"K1 needs both images on one CUDA device, got {left.device} "
-            f"and {right.device}")
-    if left.ndim != 3 or right.ndim != 3 or left.shape[2] != 3 or right.shape[2] != 3:
-        raise ValueError(f"expected (H, W, 3) images, got {tuple(left.shape)} "
-                         f"and {tuple(right.shape)}")
-    if left.shape[0] != right.shape[0]:
-        raise ValueError(f"image heights differ: {left.shape[0]} vs {right.shape[0]}")
-    if min_disparity < 0:
-        raise ValueError("K1 needs min_disparity >= 0")
-    D = max_disparity - min_disparity
-    if D <= 0:
-        raise ValueError(f"empty disparity range [{min_disparity}, {max_disparity})")
+    left, right, D = cuda_images(left, right, min_disparity, max_disparity, "K1")
     from stereo_reconstruction_tpu_torch.kernels.build import load_library
 
     lib = load_library()
-    left = left.to(torch.float32).contiguous()
-    right = right.to(torch.float32).contiguous()
     h, w = right.shape[:2]
-    hbs = (block_size - 1) // 2
     f32 = dict(dtype=torch.float32, device=right.device)
     m0 = torch.empty((h, w), **f32)
     a0 = torch.empty((h, w), dtype=torch.int32, device=right.device)
@@ -75,8 +67,55 @@ def _launch(left, right, block_size, min_disparity, max_disparity):
         rc = lib.stpu_matcher_inputs(
             left.data_ptr(), right.data_ptr(), m0.data_ptr(), a0.data_ptr(),
             cz.data_ptr(), du.data_ptr(), dl.data_ptr(),
-            h, w, left.shape[1], hbs, min_disparity, D, stream)
+            h, w, left.shape[1], (block_size - 1) // 2, min_disparity, D, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     LAUNCHES += 1
     return m0, a0, cz, du, dl
+
+
+def cost_volume(left, right, block_size: int = 17, min_disparity: int = 0,
+                max_disparity: int = 200):
+    """The (D, H, W) float32 Right-SSD cost volume (+inf = invalid) of left
+    (H, W_l, 3) and right (H, W, 3) images: the plain twin
+    ``cost_volume_right_ssd`` for CPU tensors, K2 for CUDA tensors."""
+    global VOLUME_LAUNCHES
+    if left.device.type == "cpu" and right.device.type == "cpu":
+        return cost_volume_right_ssd(left, right, block_size, min_disparity,
+                                     max_disparity)
+    left, right, D = cuda_images(left, right, min_disparity, max_disparity, "K2")
+    from stereo_reconstruction_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    h, w = right.shape[:2]
+    cost = torch.empty((D, h, w), dtype=torch.float32, device=right.device)
+    stream = torch.cuda.current_stream(right.device).cuda_stream
+    with torch.cuda.device(right.device):
+        rc = lib.stpu_cost_volume(
+            left.data_ptr(), right.data_ptr(), cost.data_ptr(),
+            h, w, left.shape[1], (block_size - 1) // 2, min_disparity, D, stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError {rc}")
+    VOLUME_LAUNCHES += 1
+    return cost
+
+
+def cuda_images(left, right, min_disparity: int, max_disparity: int, kernel: str):
+    """Check a kernel's image pair and disparity range; return the images
+    as contiguous float32 and the number of planes D."""
+    if left.device != right.device or left.device.type != "cuda":
+        raise ValueError(
+            f"{kernel} needs both images on one CUDA device, got {left.device} "
+            f"and {right.device}")
+    if left.ndim != 3 or right.ndim != 3 or left.shape[2] != 3 or right.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3) images, got {tuple(left.shape)} "
+                         f"and {tuple(right.shape)}")
+    if left.shape[0] != right.shape[0]:
+        raise ValueError(f"image heights differ: {left.shape[0]} vs {right.shape[0]}")
+    if min_disparity < 0:
+        raise ValueError(f"{kernel} needs min_disparity >= 0")
+    D = max_disparity - min_disparity
+    if D <= 0:
+        raise ValueError(f"empty disparity range [{min_disparity}, {max_disparity})")
+    return (left.to(torch.float32).contiguous(),
+            right.to(torch.float32).contiguous(), D)
