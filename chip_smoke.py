@@ -36,9 +36,19 @@ code 1, no result line) if anything is off:
    ``tile_width`` 512 (3 tiles), >= 99.5% agreement with its twin (the
    canvas is not integer-valued) and >= 98% with the exact K1 route (the
    JAX package's two-tile bound, tests/test_pallas_kernel.py); median K3
-   and twin ms over 5 runs.
+   and twin ms over 5 runs;
+9. the whole chain, ``run_pair()`` with no F, on the 750x900 non-planar
+   scene (``nonplanar_scene``) at the default config (500 keypoints, 256
+   RANSAC hypotheses, BA over 60 points, D=200, block 17): exactly one K1
+   launch and no K2 or K3 launch; a valid pose with enough points,
+   ``pose_ok``, rotation < 0.5 deg and translation direction < 2 deg from
+   the truth, BA reprojection error < 1 px; evaldisp total-bad < 20%
+   against the true disparity; the 4x4 pose staged and reloaded; the same
+   pose on three more runs, whose median stage times are printed; the
+   port's CPU ``estimate_pose`` (same draws) within 0.05 deg in rotation
+   and 0.2 deg in translation direction; a profile of the pose stage.
 
-Each path (5, 6, 8) runs with every launch count set to 0 just before it
+Each path (5, 6, 8, 9) runs with every launch count set to 0 just before it
 and read just after; the launches made to compare a kernel with its twin
 are not counted. The line before the last is ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -162,10 +172,7 @@ def _synthetic_scene(rng, h=750, w=900):
     """A textured plane at depth 14 seen by two cameras (K, a small R, unit
     T): the right image is the plane-induced homography warp of the left;
     F = K^-T [T]x R K^-1."""
-    K = np.array([[float(w), 0, w / 2], [0, float(w), h / 2], [0, 0, 1]])
-    R = _rodrigues(np.array([0.02, -0.08, 0.01]))
-    T = np.array([-1.0, 0.05, 0.15])
-    T /= np.linalg.norm(T)
+    K, R, T = _camera_pair(h, w)
     Tx = np.array([[0, -T[2], T[1]], [T[2], 0, -T[0]], [-T[1], T[0], 0]])
     Kinv = np.linalg.inv(K)
     F = Kinv.T @ Tx @ R @ Kinv
@@ -178,6 +185,127 @@ def _synthetic_scene(rng, h=750, w=900):
     left = np.repeat(np.repeat(tex, 3, 0), 3, 1)[:h, :w]
     left = np.clip(left + rng.integers(-20, 20, left.shape), 0, 255).astype(np.uint8)
     return left, H_lr, F, K
+
+
+def _camera_pair(h, w):
+    """The smoke scenes' cameras: K with focal w, a small R, unit T."""
+    K = np.array([[float(w), 0, w / 2], [0, float(w), h / 2], [0, 0, 1]])
+    R = _rodrigues(np.array([0.02, -0.08, 0.01]))
+    T = np.array([-1.0, 0.05, 0.15])
+    return K, R, T / np.linalg.norm(T)
+
+
+def nonplanar_scene(rng, h=750, w=900):
+    """The smoke cameras over the smooth surface Z = 10 + 8 (0.5 + 0.5
+    sin(6x/w) cos(4y/h)) of the left pixel (x, y), textured with Gaussian
+    blobs; the eight-point solve is degenerate on a plane, not here.
+
+    The texture is rendered at 4 samples per pixel and axis. The left image
+    takes it at pixel centres; each right pixel takes it, bilinearly, at
+    the left point it sees, found by fixed-point iteration through the
+    surface (the disparity changes slowly, so the map contracts). Each image
+    gets its own sensor noise; right pixels that see no left point stay
+    black. Returns (left, right, K, R, T, F, src): F = K^-T [T]x R K^-1 at
+    unit norm, and src (2, h, w) the left coordinates each right pixel
+    sees (NaN where none)."""
+    K, R, T = _camera_pair(h, w)
+    Tx = np.array([[0, -T[2], T[1]], [T[2], 0, -T[0]], [-T[1], T[0], 0]])
+    Kinv = np.linalg.inv(K)
+    F = Kinv.T @ Tx @ R @ Kinv
+    F /= np.linalg.norm(F)
+
+    ss = 4
+    tex = np.full((h * ss, w * ss), 128.0)
+    n_blobs = h * w // 80
+    cy, cx = rng.uniform(0, h, n_blobs), rng.uniform(0, w, n_blobs)
+    amp = rng.uniform(40, 120, n_blobs) * rng.choice([-1.0, 1.0], n_blobs)
+    sig = rng.uniform(1.0, 3.0, n_blobs)
+    for y, x, a, s in zip(cy, cx, amp, sig):
+        r = 4 * s
+        y0, y1 = max(0, int((y - r) * ss)), min(h * ss, int((y + r) * ss) + 1)
+        x0, x1 = max(0, int((x - r) * ss)), min(w * ss, int((x + r) * ss) + 1)
+        yy = np.arange(y0, y1)[:, None] / ss - y
+        xx = np.arange(x0, x1)[None, :] / ss - x
+        tex[y0:y1, x0:x1] += a * np.exp(-(yy * yy + xx * xx) / (2 * s * s))
+
+    def sensor(img):
+        img = np.clip(img + rng.normal(0, 2, img.shape), 0, 255)
+        return np.repeat(np.round(img)[..., None], 3, axis=2).astype(np.uint8)
+
+    def depth(x, y):
+        return 10 + 8 * (0.5 + 0.5 * np.sin(6 * x / w) * np.cos(4 * y / h))
+
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    px, py = xs.copy(), ys.copy()
+    for _ in range(40):
+        X = depth(px, py).ravel() * (Kinv @ np.stack([px.ravel(), py.ravel(), np.ones(h * w)]))
+        pr = K @ (R @ X + T[:, None])
+        px = px - (pr[0] / pr[2]).reshape(h, w) + xs
+        py = py - (pr[1] / pr[2]).reshape(h, w) + ys
+    seen = (px >= 0) & (px <= w - 1) & (py >= 0) & (py <= h - 1)
+    sx, sy = np.where(seen, px, 0) * ss, np.where(seen, py, 0) * ss
+    x0 = np.minimum(np.floor(sx).astype(np.int64), w * ss - 2)
+    y0 = np.minimum(np.floor(sy).astype(np.int64), h * ss - 2)
+    fx, fy = sx - x0, sy - y0
+    right = ((tex[y0, x0] * (1 - fx) + tex[y0, x0 + 1] * fx) * (1 - fy)
+             + (tex[y0 + 1, x0] * (1 - fx) + tex[y0 + 1, x0 + 1] * fx) * fy)
+    right = np.where(seen[..., None], sensor(right), 0).astype(np.uint8)
+    src = np.where(seen, np.stack([px, py]), np.nan)
+    return sensor(tex[::ss, ::ss]), right, K, R, T, F, src
+
+
+def nonplanar_disparity(src, F):
+    """Ground truth for the right image of ``nonplanar_scene`` in its
+    original frame: the rectified-frame disparity x_l - x_r between each
+    right pixel and the left point it shows, under F's Loop-Zhang
+    homographies, and the mask (255) of the pixels that show one."""
+    from stereo_reconstruction_tpu_torch.rectify.loop_zhang import loop_zhang_homographies
+
+    h, w = src.shape[1:]
+    homs = loop_zhang_homographies(F, (h, w), (h, w))
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    shown = np.isfinite(src[0])
+    p = np.stack([np.where(shown, src[0], 0).ravel(), np.where(shown, src[1], 0).ravel(),
+                  np.ones(h * w)])
+    q = np.stack([xs.ravel(), ys.ravel(), np.ones(h * w)])
+    pl = homs.H_left @ p
+    pr = homs.H_right @ q
+    gt = (pl[0] / pl[2] - pr[0] / pr[2]).reshape(h, w)
+    return (np.where(shown, gt, np.inf).astype(np.float32),
+            np.where(shown, 255, 0).astype(np.uint8))
+
+
+def pose_angles(pose, R, T):
+    """(rotation angle, translation-direction angle) in degrees between a
+    4x4 pose and the rotation R and translation T of another."""
+    pose = np.asarray(pose, np.float64)
+    cos_r = (np.trace(pose[:3, :3] @ np.asarray(R, np.float64).T) - 1) / 2
+    t = pose[:3, 3] / np.linalg.norm(pose[:3, 3])
+    cos_t = t @ (np.asarray(T, np.float64) / np.linalg.norm(T))
+    return tuple(float(a) for a in np.degrees(np.arccos(np.clip([cos_r, cos_t], -1, 1))))
+
+
+def _pose_profile(estimate, torch):
+    """(device kernels launched, device ms, wall ms) of one call, from
+    torch.profiler; None for the device numbers if it saw no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        estimate()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, device_us = 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kernels += e.count
+            device_us += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+    if kernels == 0:
+        return None, None, wall_ms
+    return kernels, device_us / 1e3, wall_ms
 
 
 def _true_disparity(H_lr, F, h, w):
@@ -216,7 +344,7 @@ def main() -> int:
     from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
     from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
     from stereo_reconstruction_tpu_torch.ops.warp import warp_perspective
-    from stereo_reconstruction_tpu_torch.pipeline import run_pair
+    from stereo_reconstruction_tpu_torch.pipeline import estimate_pose, run_pair
     from stereo_reconstruction_tpu_torch.rectify.rectifier import rectify_pair
 
     dev = torch.device("cuda", 0)
@@ -454,6 +582,74 @@ def main() -> int:
     print(f"[K3 path] K3 {k3_ms:.2f} ms, plain twin {k3_plain_ms:.2f} ms "
           f"(median of {REPEATS}); the exact route on this canvas: K1 "
           f"{k1_rect_ms:.3f} ms + row scan {scan_ms:.2f} ms", flush=True)
+
+    # 9. the whole chain, run_pair() with no F: the pose stage finds F
+    rng = np.random.default_rng(SEED)
+    left_np, right_np, K, R_true, T_true, F_true, src = nonplanar_scene(rng)
+    gt, mask = nonplanar_disparity(src, F_true)
+    pair = StereoPair(left_np, right_np, K.astype(np.float32), K.astype(np.float32),
+                      disp_right_gt=gt, mask_right_nocc=mask, name="nonplanar")
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        res = run_pair(pair, config, output_dir=tmp, write_mesh=True, device=dev)
+        if counts() != {"K1": 1, "K2": 0, "K3": 0}:
+            raise AssertionError(f"run_pair() launches {counts()}: want one K1 only")
+        pose = res.pose
+        P = pose.pose.cpu().numpy()
+        rot, trans = pose_angles(P, R_true, T_true)
+        m = res.metrics
+        print(f"[pose] run_pair() 750x900: valid {bool(pose.valid)}, pose_ok "
+              f"{m['pose_ok']}, enough_points {bool(pose.enough_points)}, "
+              f"{int(pose.num_inliers)} inliers, reprojection error 8pt "
+              f"{m['reproj_error_8pt']:.4f} px, BA {m['reproj_error_ba']:.4f} px; "
+              f"rotation {rot:.4f} deg and translation direction {trans:.4f} deg "
+              f"from the truth", flush=True)
+        if not (bool(pose.valid) and m["pose_ok"] == 1.0 and bool(pose.enough_points)):
+            raise AssertionError(f"pose stage failed: {m}")
+        if not (rot < 0.5 and trans < 2.0 and m["reproj_error_ba"] < 1.0):
+            raise AssertionError(f"pose off: {rot} deg, {trans} deg, {m}")
+        if res.disparity.shape != (750, 900) or not np.isfinite(res.disparity).all():
+            raise AssertionError(f"bad disparity: shape {res.disparity.shape}")
+        if not m["total_bad_percent"] < MAX_TOTAL_BAD:
+            raise AssertionError(f"evaldisp against the true disparity: {m}")
+        print(f"[pose] evaldisp vs the scene's true disparity: bad-2.0 "
+              f"{m['bad_percent']:.3f}%, invalid {m['invalid_percent']:.3f}%, "
+              f"avg err {m['avg_err']:.3f} px over {int(m['n_evaluated'])} px")
+        with open(os.path.join(tmp, "nonplanar_pose.json")) as f:
+            staged = json.load(f)
+        if not np.array_equal(np.asarray(staged["pose"], np.float32), P):
+            raise AssertionError("staged 4x4 pose does not reload equal")
+        verts, _, faces = read_off(os.path.join(tmp, "nonplanar_mesh.off"))
+        if verts.shape != (750 * 900, 3) or len(faces) == 0:
+            raise AssertionError(f"bad mesh: {verts.shape} vertices, {len(faces)} faces")
+
+    runs = []
+    for _ in range(3):
+        reset_counts()
+        r = run_pair(pair, config, device=dev)
+        if counts() != {"K1": 1, "K2": 0, "K3": 0}:
+            raise AssertionError(f"run_pair() launches {counts()}")
+        if not torch.equal(r.pose.pose, pose.pose):
+            raise AssertionError("run_pair() pose is not deterministic")
+        runs.append(r.timings)
+    med = {k: statistics.median(t[k] for t in runs) * 1e3
+           for k in ("pose", "rectify", "disparity", "recon")}
+    print(f"[pose] {smi}: run_pair() stage ms (median of 3 after the first run): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+          + "; the same pose every run", flush=True)
+    cpu_pose = estimate_pose(pair, config, device="cpu")
+    d_rot, d_trans = pose_angles(P, cpu_pose.pose[:3, :3].numpy(),
+                                 cpu_pose.pose[:3, 3].numpy())
+    print(f"[pose] card vs the port on the CPU, same draws: rotation {d_rot:.5f} deg, "
+          f"translation direction {d_trans:.5f} deg", flush=True)
+    if not (d_rot < 0.05 and d_trans < 0.2):
+        raise AssertionError(f"card and CPU poses differ: {d_rot} deg, {d_trans} deg")
+    kernels, device_ms, wall_ms = _pose_profile(
+        lambda: estimate_pose(pair, config, device=dev), torch)
+    print(f"[pose] profiled estimate_pose: {wall_ms:.1f} ms wall, "
+          + (f"{kernels} device kernels, {device_ms:.1f} ms device time "
+             f"({100 * device_ms / wall_ms:.1f}% busy)" if kernels else
+             "device time not measured (the profiler saw no device work)"), flush=True)
 
     cv_src = "stereo_reconstruction_tpu_torch/csrc/cost_volume.cuh"
     kernels = [

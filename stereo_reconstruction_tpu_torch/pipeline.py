@@ -1,15 +1,14 @@
-"""End-to-end stereo reconstruction, shared-pose mode.
+"""End-to-end stereo reconstruction.
 
-Port of ``stereo_reconstruction_tpu/pipeline.py`` (``run_pair``,
-``reconstruct_from_disparity``; reference ``main()``,
-``src/main.cpp:13-66``) for a given fundamental matrix: Loop-Zhang
-rectification -> dense Right-variant disparity -> nearest-neighbour
-back-warp -> outlier clamp -> depth -> back-projection -> mesh, plus
-``evaldisp`` when ground truth is present. Staged artefacts are the same
-as the JAX package's: ``<name>_disp.pfm``, ``<name>_pose.json`` and
-``<name>_mesh.off``.
-
-The pose stage (``fixed_F=None``) is not ported yet and raises.
+Port of ``stereo_reconstruction_tpu/pipeline.py`` (``estimate_pose``,
+``run_pair``, ``reconstruct_from_disparity``; reference ``main()``,
+``src/main.cpp:13-66``): sparse pose (SIFT x2 -> match -> RANSAC
+eight-point -> BA) -> Loop-Zhang rectification -> dense Right-variant
+disparity -> nearest-neighbour back-warp -> outlier clamp -> depth ->
+back-projection -> mesh, plus ``evaldisp`` when ground truth is present.
+``fixed_F`` skips the pose stage (the shared-pose mode). Staged
+artefacts are the same as the JAX package's: ``<name>_disp.pfm``,
+``<name>_pose.json`` and ``<name>_mesh.off``.
 """
 
 from __future__ import annotations
@@ -29,6 +28,16 @@ from stereo_reconstruction_tpu_torch.io.image import disparity_png_roundtrip
 from stereo_reconstruction_tpu_torch.io.pfm import write_pfm
 from stereo_reconstruction_tpu_torch.ops import metrics as metrics_mod
 from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
+from stereo_reconstruction_tpu_torch.ops.features import Keypoints, detect_and_describe_batch
+from stereo_reconstruction_tpu_torch.ops.matching import (
+    match_descriptors,
+    matches_to_homogeneous,
+)
+from stereo_reconstruction_tpu_torch.pose.pipeline import (
+    PoseEstimate,
+    estimate_pose_from_matches,
+)
+from stereo_reconstruction_tpu_torch.pose.ransac import draw_uniforms
 from stereo_reconstruction_tpu_torch.recon.backproject import backproject
 from stereo_reconstruction_tpu_torch.recon.disparity import (
     disparity_to_depth,
@@ -43,7 +52,7 @@ from stereo_reconstruction_tpu_torch.rectify.rectifier import (
 
 @dataclasses.dataclass
 class PipelineResult:
-    pose: None                       # the pose stage is not ported yet
+    pose: Optional[PoseEstimate]
     disparity: np.ndarray            # (H, W) right-image disparity, original frame
     depth: Optional[np.ndarray]
     metrics: Dict[str, float]
@@ -53,6 +62,37 @@ class PipelineResult:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def estimate_pose(pair: StereoPair, config: PipelineConfig = PipelineConfig(),
+                  device="cpu", uniforms: Optional[torch.Tensor] = None) -> PoseEstimate:
+    """SIFT x2 -> match -> RANSAC eight-point -> filter -> BA on ``device``
+    (reference runFullPoseEstimation, pose_estimation.cpp:4-115).
+
+    ``uniforms`` are the RANSAC draws (``pose/ransac.py``); by default they
+    come from a CPU generator seeded with ``config.seed``, so every device
+    tries the same hypotheses. Everything after that runs on ``device``."""
+    device = torch.device(device)
+    images = torch.stack([torch.as_tensor(np.asarray(pair.image_left)),
+                          torch.as_tensor(np.asarray(pair.image_right))]).to(device)
+    kp = detect_and_describe_batch(images, config.frontend)
+    kp_l = Keypoints(*(x[0] for x in kp))
+    kp_r = Keypoints(*(x[1] for x in kp))
+    ml, mr, valid = matches_to_homogeneous(match_descriptors(kp_l, kp_r, config.frontend))
+
+    # valid matches to the front, in their original order
+    order = torch.argsort((~valid).to(torch.int8), stable=True)
+    ml, mr = ml[:, order], mr[:, order]
+    if uniforms is None:
+        uniforms = draw_uniforms(config.ransac, ml.shape[1],
+                                 torch.Generator().manual_seed(config.seed))
+
+    def intrinsics(K):
+        return torch.as_tensor(np.asarray(K), dtype=torch.float32, device=device)
+
+    return estimate_pose_from_matches(
+        ml, mr, intrinsics(pair.intrinsics_left), intrinsics(pair.intrinsics_right),
+        config, num_matches_valid=torch.sum(valid), uniforms=uniforms)
 
 
 def compute_disparity(left, right, config: PipelineConfig) -> torch.Tensor:
@@ -92,39 +132,65 @@ def run_pair(
     fixed_F: Optional[np.ndarray] = None,
     backwarp_compat_left: bool = False,
     device="cpu",
+    uniforms: Optional[torch.Tensor] = None,
 ) -> PipelineResult:
-    """Reconstruction of one stereo pair from the fundamental matrix
-    ``fixed_F`` (the shared-pose mode) on ``device``.
+    """Reconstruction of one stereo pair on ``device`` (reference main.cpp
+    flow).
 
-    ``png_compat`` quantises disparity through uint8 like the reference
-    (main.cpp:42,50); ``backwarp_compat_left`` back-warps disparity with
-    the LEFT homography like the reference (rectification.cpp:78-88)."""
-    if fixed_F is None:
-        raise NotImplementedError(
-            "the pose stage is not ported yet: pass fixed_F")
+    ``fixed_F`` skips the pose stage and rectifies from this fundamental
+    matrix (the shared-pose mode); ``uniforms`` are the RANSAC draws of the
+    pose stage (see ``estimate_pose``). ``png_compat`` quantises disparity
+    through uint8 like the reference (main.cpp:42,50);
+    ``backwarp_compat_left`` back-warps disparity with the LEFT homography
+    like the reference (rectification.cpp:78-88)."""
     device = torch.device(device)
-    timings: Dict[str, float] = {"pose": 0.0}
+    timings: Dict[str, float] = {}
 
     t0 = time.perf_counter()
-    F = np.asarray(fixed_F, np.float64)
-    rect = rectify_pair(
-        torch.as_tensor(np.asarray(pair.image_left), device=device),
-        torch.as_tensor(np.asarray(pair.image_right), device=device),
-        F,
-        config=config.rectify,
-    )
-    _sync(device)
+    pose = None
+    if fixed_F is None:
+        pose = estimate_pose(pair, config, device, uniforms)
+        _sync(device)
+    timings["pose"] = time.perf_counter() - t0
+
+    # a degenerate pose (cheirality failure, non-finite or huge reprojection
+    # error) would rectify into garbage: match the raw pair instead
+    # (pose_estimation.cpp:84 throws there)
+    pose_ok = fixed_F is not None or (
+        bool(pose.valid) and float(pose.reproj_error_ba) < 50.0)
+
+    t0 = time.perf_counter()
+    F = np.eye(3)
+    if pose_ok:
+        F = (np.asarray(fixed_F, np.float64) if fixed_F is not None
+             else pose.fundamental.cpu().numpy().astype(np.float64))
+        rect = rectify_pair(
+            torch.as_tensor(np.asarray(pair.image_left), device=device),
+            torch.as_tensor(np.asarray(pair.image_right), device=device),
+            F,
+            config=config.rectify,
+        )
+        _sync(device)
     timings["rectify"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    disp_rect = compute_disparity(rect.left, rect.right, config)
-    disparity = disparity_to_original_frame(
-        disp_rect,
-        rect.homographies.H_right,
-        (pair.height, pair.width),
-        compat_left_homography=(rect.homographies.H_left
-                                if backwarp_compat_left else None),
-    )
+    if pose_ok:
+        disp_rect = compute_disparity(rect.left, rect.right, config)
+        disparity = disparity_to_original_frame(
+            disp_rect,
+            rect.homographies.H_right,
+            (pair.height, pair.width),
+            compat_left_homography=(rect.homographies.H_left
+                                    if backwarp_compat_left else None),
+        )
+    else:
+        disparity = compute_disparity(
+            torch.as_tensor(np.asarray(pair.image_left), dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(np.asarray(pair.image_right), dtype=torch.float32,
+                            device=device),
+            config,
+        )
     _sync(device)
     timings["disparity"] = time.perf_counter() - t0
 
@@ -138,7 +204,13 @@ def run_pair(
     _sync(device)
     timings["recon"] = time.perf_counter() - t0
 
-    results: Dict[str, float] = {"pose_ok": 1.0}
+    results: Dict[str, float] = {"pose_ok": float(pose_ok)}
+    if pose is not None:
+        results.update({
+            "reproj_error_8pt": float(pose.reproj_error_8pt),
+            "reproj_error_ba": float(pose.reproj_error_ba),
+            "num_inliers": int(pose.num_inliers),
+        })
     if pair.disp_right_gt is not None and pair.mask_right_nocc is not None:
         m = metrics_mod.evaldisp(
             torch.as_tensor(disparity_np, device=device),
@@ -156,7 +228,8 @@ def run_pair(
         with open(stem + "_pose.json", "w") as f:
             json.dump(
                 {
-                    "pose": None,
+                    "pose": (pose.pose.cpu().numpy().tolist()
+                             if pose is not None else None),
                     "fundamental": F.tolist(),
                     "metrics": results,
                     "timings": timings,
@@ -168,7 +241,7 @@ def run_pair(
             save_mesh(stem + "_mesh.off", grid, config.recon.mesh_edge_threshold)
 
     return PipelineResult(
-        pose=None,
+        pose=pose,
         disparity=disparity_np,
         depth=depth.cpu().numpy(),
         metrics=results,

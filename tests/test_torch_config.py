@@ -65,14 +65,22 @@ def test_tf32_pinned_off():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
+POSE_MODULES = ("ops.features", "ops.matching", "ops.geometry", "ops.small_linalg",
+                "pose", "pose.eight_point", "pose.ransac", "pose.ba", "pose.pipeline")
+
+
 def test_port_imports_no_jax():
-    """Every module of the port imports without pulling in jax or the JAX
-    package (whose __init__ imports jax)."""
+    """Every module of the port, the pose stage's included, imports without
+    pulling in jax or the JAX package (whose __init__ imports jax)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import stereo_reconstruction_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name[len(p.__name__) + 1:]\n"
+        "         for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        f"missing = set({POSE_MODULES!r}) - set(names)\n"
+        "assert not missing, missing\n"
+        "for name in names:\n"
+        "    importlib.import_module(p.__name__ + '.' + name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'stereo_reconstruction_tpu']\n"

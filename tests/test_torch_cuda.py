@@ -1,5 +1,5 @@
-"""K1, K2, K3 and the matcher on the card (marker ``cuda``; skipped
-without a GPU).
+"""K1, K2, K3, the matcher and the pose stage on the card (marker ``cuda``;
+skipped without a GPU).
 
 A CUDA kernel has no CPU mode, so these run only on a machine with an
 NVIDIA GPU and ``nvcc``:
@@ -10,18 +10,27 @@ This file imports neither JAX nor the JAX package (the GPU machine has
 neither). On integer-valued pairs the window sums are exact, so K1's five
 planes, K2's volume and K3's disparity must equal the plain twins' bit for
 bit. K1 and K2 share their cost code, so K2's reductions equal K1's planes
-on any input.
+on any input. The pose stage is plain PyTorch; on the card it must give
+the port's CPU pose for the same RANSAC draws.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from stereo_reconstruction_tpu_torch.config import MatcherConfig
+from stereo_reconstruction_tpu_torch.config import MatcherConfig, PipelineConfig
+from stereo_reconstruction_tpu_torch.data.records import StereoPair
 from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
 from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
 from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
 from stereo_reconstruction_tpu_torch.ops.smoothing import volume_reductions
+from stereo_reconstruction_tpu_torch.pipeline import estimate_pose, run_pair
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from chip_smoke import nonplanar_scene, pose_angles  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -143,3 +152,35 @@ def test_k2_and_k3_wrappers_count_each_launch(cuda, rng):
     cbs.block_search_fused_plain(L, R, cfg)
     assert (ccv.LAUNCHES, ccv.VOLUME_LAUNCHES, cbs.LAUNCHES) == (
         before[0], before[1] + 1, before[2] + 1)
+
+
+def _posed_pair():
+    left, right, K, R, T, _, _ = nonplanar_scene(np.random.default_rng(4), 240, 320)
+    K = K.astype(np.float32)
+    return StereoPair(left, right, K, K, name="posed"), R, T
+
+
+def test_pose_stage_on_card_matches_cpu(cuda):
+    pair, R, T = _posed_pair()
+    cfg = PipelineConfig()
+    got = estimate_pose(pair, cfg, device=cuda)
+    want = estimate_pose(pair, cfg, device="cpu")
+    assert got.pose.device.type == "cuda" and got.fundamental.device.type == "cuda"
+    assert bool(got.valid) and bool(want.valid)
+    # the 2 * mean outlier filter may keep a few matches more or fewer when
+    # the RANSAC poses differ by rounding (157 and 164 on the H100)
+    np.testing.assert_allclose(got.pose.cpu().numpy()[:3, :3], want.pose.numpy()[:3, :3],
+                               atol=1e-3)
+    rot, trans = pose_angles(got.pose.cpu().numpy(), R, T)
+    assert rot < 1.0 and trans < 5.0
+
+
+def test_run_pair_without_F_launches_k1_once(cuda):
+    pair, _, _ = _posed_pair()
+    cfg = PipelineConfig(matcher=MatcherConfig(block_size=7, max_disparity=80))
+    before = (ccv.LAUNCHES, ccv.VOLUME_LAUNCHES, cbs.LAUNCHES)
+    res = run_pair(pair, cfg, device=cuda)
+    assert (ccv.LAUNCHES, ccv.VOLUME_LAUNCHES, cbs.LAUNCHES) == (
+        before[0] + 1, before[1], before[2])
+    assert res.metrics["pose_ok"] == 1.0
+    assert res.disparity.shape == (240, 320) and np.mean(res.disparity > 0) > 0.5
