@@ -7,26 +7,31 @@ Drives ``stereo_reconstruction_tpu_torch`` on ``cuda:0`` and fails (exit
 code 1, no result line) if anything is off:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: K1 and K2 (``csrc/cost_volume.cu``) and K3
-   (``csrc/block_search.cu``) with one ``nvcc`` each for ``sm_90a``, all
-   started together;
-3. K1 and K2 against their plain PyTorch twins on the card at three
+2. build: K1 (``csrc/matcher_inputs.cu``), K1b (``csrc/row_scan.cu``),
+   K2 (``csrc/cost_volume.cu``) and K3 (``csrc/block_search.cu``) with one
+   ``nvcc`` each for ``sm_90a``, all started together;
+3. K1, K2 and K1b against their plain PyTorch twins on the card at four
    shapes — (a) 375x450, D=100, block 17 (MiddEval3 trainingQ), (b) the
    1128x1408 rectified canvas of a 750x900 pair, D=200, block 17 (the
    reference's operating point, main.cpp:40), (c) H=21, W=40, WL=49,
-   min_d=2, block 5 — on integer-valued pairs, where K1's five planes and
-   K2's volume (+inf pattern included) must be bit equal; median kernel
-   and plain ms over 5 timed runs after a warm-up;
+   min_d=2, block 5 — on integer-valued pairs, where K1's five planes,
+   K2's volume (+inf pattern included) and K1b's disparity from K1's
+   planes must be bit equal; (d) 101x200, D=30, min_d=1, block 9, puts an
+   interior K1 tile's band at the image bottom, where the overrun slots of
+   its band loads must load nothing; then K1b on planted random planes (W
+   from 1 to 4096); median kernel and plain ms over 5 timed runs after a
+   warm-up;
 4. the matcher against a literal NumPy recurrence on a small pair;
 5. the slice: ``run_pair(fixed_F=F)`` on a synthetic 750x900 pair with
    a known F at the default config (block 17, D=200, outlier kernel 500),
-   with exactly one K1 launch and no K2 or K3 launch per call, the three
-   staged artefacts, ``evaldisp`` against the scene's true disparity, and
-   >= 99.5% disparity agreement with the plain backend; median stage
-   times over 3 runs after a warm-up;
+   with exactly one K1 and one K1b launch and no K2 or K3 launch per call,
+   the three staged artefacts, ``evaldisp`` against the scene's true
+   disparity, and >= 99.5% disparity agreement with the plain backend;
+   median stage times over 3 runs after a warm-up; K1b bit-equal to the
+   plain scan on the slice's own K1 planes;
 6. K2's path on the slice's own rectified canvas, as
-   ``tools/tpu_validate.py`` runs it: the volume, reduced to a disparity
-   by the exact row scan. ``volume_reductions`` of K2's volume must equal
+   ``tools/tpu_validate.py`` runs it: the volume, reduced by
+   ``volume_reductions`` and K1b to a disparity. The reductions must equal
    K1's five planes, and the disparity the K1 route's, bit for bit;
 7. K3 against its twin on integer-valued pairs, bit equal: shape (c),
    two tiles with a tile width that does not divide W at
@@ -40,7 +45,7 @@ code 1, no result line) if anything is off:
 9. the whole chain, ``run_pair()`` with no F, on the 750x900 non-planar
    scene (``nonplanar_scene``) at the default config (500 keypoints, 256
    RANSAC hypotheses, BA over 60 points, D=200, block 17): exactly one K1
-   launch and no K2 or K3 launch; a valid pose with enough points,
+   and one K1b launch and no K2 or K3 launch; a valid pose with enough points,
    ``pose_ok``, rotation < 0.5 deg and translation direction < 2 deg from
    the truth, BA reprojection error < 1 px; evaldisp total-bad < 20%
    against the true disparity; the 4x4 pose staged and reloaded; the same
@@ -50,7 +55,9 @@ code 1, no result line) if anything is off:
 
 Each path (5, 6, 8, 9) runs with every launch count set to 0 just before it
 and read just after; the launches made to compare a kernel with its twin
-are not counted. The line before the last is ``{"kernels": [...]}``; the
+are not counted. The line before the last is ``{"kernels": [...]}``, each
+kernel with its bound (the larger of its bytes over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s, counted for this run's inputs); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -68,6 +75,11 @@ import numpy as np
 
 SEED = 0
 REPEATS = 5
+# kernel launches per timed sample (one host call would time the enqueue)
+CALLS = 10
+# the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
 # bound on evaldisp's bad-2.0 + invalid share against the synthetic scene's
 # true disparity (a 180x150 cut of the scene on the CPU gives 7.9%)
 MAX_TOTAL_BAD = 20.0
@@ -93,7 +105,26 @@ def _random_stereo(rng, h, w, max_d=8, noise=6, wl_extra=0):
     return left, right
 
 
-def _median_ms(fn, torch):
+def scan_volume(rng, h, w, d, ties=False):
+    """A (d, h, w) float32 cost volume and an (h, w) black mask that drive
+    every branch of the exact smoothing row scan: costs in [1, 1.25] (so the
+    0.9 discount flips winners), +inf entries, pixels with no candidate
+    (sentinel -x), cheap and exactly-zero d = 0 entries, black pixels.
+    ``ties`` rounds the costs to 1/8, so equal values and the index rule
+    decide."""
+    cost = rng.uniform(1.0, 1.25, (d, h, w)).astype(np.float32)
+    if ties:
+        cost = np.round(cost * 8) / 8
+    cost[rng.uniform(size=cost.shape) < 0.2] = np.inf
+    cost[:, rng.uniform(size=(h, w)) < 0.15] = np.inf
+    cost[0] = np.where(rng.uniform(size=(h, w)) < 0.3, 0.5, cost[0])
+    cost[0] = np.where(rng.uniform(size=(h, w)) < 0.05, 0.0, cost[0])
+    return cost, rng.uniform(size=(h, w)) < 0.1
+
+
+def _median_ms(fn, torch, calls=1):
+    """Median over REPEATS of the CUDA-event time of ``calls`` back-to-back
+    calls, divided by ``calls``, after a warm-up call."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -101,11 +132,44 @@ def _median_ms(fn, torch):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(calls):
+            fn()
         e1.record()
         torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / calls)
     return statistics.median(times)
+
+
+def _bound(nbytes, ops):
+    """(ms, what binds): the larger of the bytes over the card's memory rate
+    and the float32 operations over its peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _matcher_bound(s, out_planes):
+    """Least time of a cost kernel at shape ``s`` with ``out_planes`` (H, W)
+    float32 outputs: both images read once, the outputs written once, and
+    per (pixel, plane) with a candidate 9 operations of squared difference,
+    2 x 2hbs window adds, a sqrt, a multiply and a compare. The bound is
+    the function's: K1's left layout pass (12 B x H x WLp written to its
+    own scratch and read back) is left out."""
+    h, w, hbs = s["h"], s["w"], (s["bs"] - 1) // 2
+    wl, min_d, d = w + s["wl_extra"], s["min_d"], s["max_d"] - s["min_d"]
+    pairs = 0
+    if hbs > 0 and h > 1 and w > 1:
+        reach = np.minimum(w - 1, np.arange(w) + hbs)    # x + min(W-1-x, hbs)
+        pairs = h * int(np.clip(wl - reach - min_d, 0, d).sum())
+    nbytes = 4 * 3 * h * (w + wl) + 4 * out_planes * h * w
+    return _bound(nbytes, pairs * (9 + 4 * hbs + 3))
+
+
+def _scan_bound(h, w):
+    """Least time of K1b on an (h, w) row: five planes and the mask read,
+    the disparity written (25 bytes a pixel), and ~30 float32 operations a
+    pixel (the up product, three candidates of two products and four
+    compares each). Neither binds in practice: the h dependent rows do."""
+    return _bound(25 * h * w, 30 * h * w)
 
 
 def _max_abs_err(got, want):
@@ -340,6 +404,7 @@ def main() -> int:
     from stereo_reconstruction_tpu_torch.kernels import build
     from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
     from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
+    from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
     from stereo_reconstruction_tpu_torch.ops import smoothing
     from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
     from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
@@ -350,10 +415,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     def reset_counts():
-        ccv.LAUNCHES = ccv.VOLUME_LAUNCHES = cbs.LAUNCHES = 0
+        ccv.LAUNCHES = crs.LAUNCHES = ccv.VOLUME_LAUNCHES = cbs.LAUNCHES = 0
 
     def counts():
-        return {"K1": ccv.LAUNCHES, "K2": ccv.VOLUME_LAUNCHES, "K3": cbs.LAUNCHES}
+        return {"K1": ccv.LAUNCHES, "K1b": crs.LAUNCHES, "K2": ccv.VOLUME_LAUNCHES,
+                "K3": cbs.LAUNCHES}
+
+    def expected(**k):
+        return {"K1": 0, "K1b": 0, "K2": 0, "K3": 0, **k}
 
     # 1. device
     smi = subprocess.run(
@@ -366,39 +435,60 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     build.load_library()
-    print(f"[build] K1, K2, K3 loaded in {time.perf_counter() - t0:.2f} s "
+    print(f"[build] K1, K1b, K2, K3 loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.BUILD_INFO.get('seconds', 0.0):.2f} s)")
     for line in build.BUILD_INFO.get("log", "").splitlines():
         if "registers" in line or "spill" in line or "entry function" in line:
             print(f"[build] {line.strip()}")
 
-    # 3. K1 and K2 vs their plain twins on the card
+    # 3. K1, K2 and K1b vs their plain twins on the card
     shapes = {
         "a": dict(h=375, w=450, wl_extra=0, bs=17, min_d=0, max_d=100),
         "b": dict(h=1128, w=1408, wl_extra=0, bs=17, min_d=0, max_d=200),
         "c": dict(h=21, w=40, wl_extra=9, bs=5, min_d=2, max_d=12),
+        "d": dict(h=101, w=200, wl_extra=0, bs=9, min_d=1, max_d=31),
     }
-    max_err = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    max_err = {"K1": 0.0, "K1b": 0.0, "K2": 0.0, "K3": 0.0}
     times = {}
+    bounds = {}
     for key, s in shapes.items():
         rng = np.random.default_rng(SEED)
         left_np, right_np = _random_stereo(rng, s["h"], s["w"], wl_extra=s["wl_extra"])
         left = torch.from_numpy(left_np).to(dev, torch.float32)
         right = torch.from_numpy(right_np).to(dev, torch.float32)
         args = (left, right, s["bs"], s["min_d"], s["max_d"])
-        got = ccv.matcher_inputs(*args)
-        want = ccv.matcher_inputs_plain(*args)
+        planes = ccv.matcher_inputs(*args)
+        twin = ccv.matcher_inputs_plain(*args)
         torch.cuda.synchronize()
-        for name, g, w in zip(("m0", "a0", "c_zero", "diag_up", "diag_lf"), got, want):
+        for name, g, w in zip(("m0", "a0", "c_zero", "diag_up", "diag_lf"), planes, twin):
             if g.dtype != w.dtype or not torch.equal(g, w):
                 raise AssertionError(f"K1 != plain at shape ({key}), plane {name}")
             max_err["K1"] = max(max_err["K1"], _max_abs_err(g, w))
-        k_ms = _median_ms(lambda: ccv.matcher_inputs(*args), torch)
+        del twin
+        k_ms = _median_ms(lambda: ccv.matcher_inputs(*args), torch, CALLS)
         p_ms = _median_ms(lambda: ccv.matcher_inputs_plain(*args), torch)
         times["K1", key] = (k_ms, p_ms)
+        bounds["K1", key] = _matcher_bound(s, out_planes=5)
         print(f"[kernel] shape ({key}) {s}: 5 planes bit-equal; "
-              f"K1 {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPEATS})",
-              flush=True)
+              f"K1 {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPEATS}); "
+              f"bound {bounds['K1', key][0]:.4f} ms", flush=True)
+        black = black_pixel_mask(right)
+        scan = dict(smooth_factor=0.9, d_first=s["min_d"], n_planes=s["max_d"] - s["min_d"])
+        got = crs.row_scan(*planes, black, **scan)
+        plain = smoothing.smoothed_argmin_from_inputs(*planes, black, **scan)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            raise AssertionError(f"K1b != plain scan at shape ({key}): "
+                                 f"{(got != plain).float().mean().item():.3%} of pixels")
+        max_err["K1b"] = max(max_err["K1b"], _max_abs_err(got, plain))
+        k_ms = _median_ms(lambda: crs.row_scan(*planes, black, **scan), torch, CALLS)
+        p_ms = _median_ms(lambda: smoothing.smoothed_argmin_from_inputs(
+            *planes, black, **scan), torch)
+        times["K1b", key] = (k_ms, p_ms)
+        bounds["K1b", key] = _scan_bound(s["h"], s["w"])
+        print(f"[kernel] shape ({key}): K1b bit-equal to the plain scan on K1's planes; "
+              f"K1b {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPEATS}); "
+              f"bound {bounds['K1b', key][0]:.4f} ms", flush=True)
         got = ccv.cost_volume(*args)
         want = ccv.cost_volume_right_ssd(*args)
         torch.cuda.synchronize()
@@ -407,12 +497,35 @@ def main() -> int:
                                  f"{(got != want).float().mean().item():.3%} of entries")
         max_err["K2"] = max(max_err["K2"], _max_abs_err(got, want))
         del got, want
-        k_ms = _median_ms(lambda: ccv.cost_volume(*args), torch)
+        k_ms = _median_ms(lambda: ccv.cost_volume(*args), torch, CALLS)
         p_ms = _median_ms(lambda: ccv.cost_volume_right_ssd(*args), torch)
         times["K2", key] = (k_ms, p_ms)
+        bounds["K2", key] = _matcher_bound(s, out_planes=s["max_d"] - s["min_d"])
         print(f"[kernel] shape ({key}): volume bit-equal, +inf pattern included; "
-              f"K2 {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPEATS})",
-              flush=True)
+              f"K2 {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPEATS}); "
+              f"bound {bounds['K2', key][0]:.4f} ms; K1 / K2 "
+              f"{times['K1', key][0] / k_ms:.3f}", flush=True)
+
+    # K1b on planted random planes: zeros, sentinels, black pixels and ties,
+    # W from 1 to the widest row it takes
+    scan_cases = [(9, 1, 0, 0.9, False), (9, 33, 2, 0.9, False), (7, 100, 0, 1.0, True),
+                  (5, 1100, 0, 0.9, False), (4, 2100, 2, 0.5, True),
+                  (3, crs.max_width(), 1, 0.9, True), (6, 70, 0, 0.0, False)]
+    for h, w, d_first, sf, ties in scan_cases:
+        cost, black = scan_volume(np.random.default_rng(SEED + w), h, w, 12, ties)
+        planes = smoothing.volume_reductions(torch.from_numpy(cost).to(dev), d_first)
+        black = torch.from_numpy(black).to(dev)
+        scan = dict(smooth_factor=sf, d_first=d_first, n_planes=12)
+        got = crs.row_scan(*planes, black, **scan)
+        plain = smoothing.smoothed_argmin_from_inputs(*planes, black, **scan)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            raise AssertionError(f"K1b != plain scan on planted planes {h}x{w}, "
+                                 f"d_first {d_first}, sf {sf}")
+        max_err["K1b"] = max(max_err["K1b"], _max_abs_err(got, plain))
+    print(f"[kernel] K1b bit-equal to the plain scan on {len(scan_cases)} planted "
+          f"cases (W 1 to {crs.max_width()}, d_first 0-2, sf 0.9 / 1.0 with ties / "
+          f"0.5 / 0.0)", flush=True)
 
     # 4. the matcher (K1 + row scan) against a literal NumPy recurrence
     rng = np.random.default_rng(SEED)
@@ -445,9 +558,9 @@ def main() -> int:
         reset_counts()
         res = run_pair(pair, config, output_dir=tmp, write_mesh=True, fixed_F=F,
                        device=dev)
-        if counts() != {"K1": 1, "K2": 0, "K3": 0}:
-            raise AssertionError(f"run_pair launches {counts()}: want one K1 only")
-        launches["K1"] = counts()["K1"]
+        if counts() != expected(K1=1, K1b=1):
+            raise AssertionError(f"run_pair launches {counts()}: want one K1 and one K1b")
+        launches["K1"], launches["K1b"] = counts()["K1"], counts()["K1b"]
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         disp = res.disparity
         if disp.shape != (750, 900) or not np.isfinite(disp).all():
@@ -467,7 +580,7 @@ def main() -> int:
         print(f"[slice] evaldisp vs the scene's true disparity: bad-2.0 "
               f"{m['bad_percent']:.3f}%, invalid {m['invalid_percent']:.3f}%, "
               f"avg err {m['avg_err']:.3f} px over {int(m['n_evaluated'])} px")
-        print(f"[slice] run_pair 750x900 D=200: 1 K1 launch, disparity finite, "
+        print(f"[slice] run_pair 750x900 D=200: 1 K1 and 1 K1b launch, disparity finite, "
               f"{len(faces)} mesh faces, artefacts reload; peak {peak_gib:.2f} GiB; "
               f"valid (>0) {np.mean(disp > 0):.4f}", flush=True)
 
@@ -477,7 +590,7 @@ def main() -> int:
         reset_counts()
         r = run_pair(pair, config if which == "kernel" else plain_config,
                      fixed_F=F, device=dev)
-        if counts() != {"K1": int(which == "kernel"), "K2": 0, "K3": 0}:
+        if counts() != expected(K1=int(which == "kernel"), K1b=int(which == "kernel")):
             raise AssertionError(f"{which} run_pair: launches {counts()}")
         if which == "kernel" and not np.array_equal(r.disparity, disp):
             raise AssertionError("run_pair is not deterministic")
@@ -500,34 +613,42 @@ def main() -> int:
                         torch.from_numpy(right_np).to(dev), F)
     planes = ccv.matcher_inputs(rect.left, rect.right, 17, 0, 200)
     black = black_pixel_mask(rect.right)
-    scan_ms = _median_ms(lambda: smoothing.smoothed_argmin_from_inputs(
-        *planes, black, smooth_factor=0.9, d_first=0, n_planes=200), torch)
+    scan = dict(smooth_factor=0.9, d_first=0, n_planes=200)
+    got = crs.row_scan(*planes, black, **scan)
+    plain = smoothing.smoothed_argmin_from_inputs(*planes, black, **scan)
+    torch.cuda.synchronize()
+    if not torch.equal(got, plain):
+        raise AssertionError("K1b != plain scan on the slice's canvas planes")
+    max_err["K1b"] = max(max_err["K1b"], _max_abs_err(got, plain))
+    scan_ms = _median_ms(lambda: crs.row_scan(*planes, black, **scan), torch, CALLS)
+    plain_scan_ms = _median_ms(
+        lambda: smoothing.smoothed_argmin_from_inputs(*planes, black, **scan), torch)
     k1_rect_ms = _median_ms(lambda: ccv.matcher_inputs(rect.left, rect.right, 17, 0, 200),
-                            torch)
+                            torch, CALLS)
     print(f"[slice] disparity stage parts on the {tuple(rect.canvas)} canvas: "
-          f"K1 {k1_rect_ms:.3f} ms, row scan {scan_ms:.2f} ms")
+          f"K1 {k1_rect_ms:.4f} ms, K1b {scan_ms:.4f} ms (bit-equal to the plain scan, "
+          f"{plain_scan_ms:.2f} ms)", flush=True)
 
     # 6. K2's path on the same canvas, as tools/tpu_validate.py runs it
     reset_counts()
     volume = ccv.cost_volume(rect.left, rect.right, 17, 0, 200)
-    disp_k2 = smoothing.smoothed_argmin_reference(volume, black, smooth_factor=0.9,
-                                                  d_first=0)
+    reductions = smoothing.volume_reductions(volume, 0)
+    del volume
+    disp_k2 = crs.row_scan(*reductions, black, **scan)
     torch.cuda.synchronize()
-    if counts() != {"K1": 0, "K2": 1, "K3": 0}:
-        raise AssertionError(f"K2 path launches {counts()}: want one K2 only")
+    if counts() != expected(K1b=1, K2=1):
+        raise AssertionError(f"K2 path launches {counts()}: want one K2 and one K1b")
     launches["K2"] = counts()["K2"]
     if disp_k2.shape != tuple(rect.canvas) or not torch.isfinite(disp_k2).all():
         raise AssertionError(f"K2 path: bad disparity {tuple(disp_k2.shape)}")
-    for name, g, w in zip(("m0", "a0", "c_zero", "diag_up", "diag_lf"),
-                          smoothing.volume_reductions(volume, 0), planes):
+    for name, g, w in zip(("m0", "a0", "c_zero", "diag_up", "diag_lf"), reductions, planes):
         if g.dtype != w.dtype or not torch.equal(g, w):
             raise AssertionError(f"volume_reductions(K2) != K1 on the canvas, plane {name}")
-    del volume
     disp_k1 = block_search_right(rect.left, rect.right, MatcherConfig())
     if not torch.equal(disp_k2, disp_k1):
         raise AssertionError("K2 route disparity != K1 route disparity on the canvas")
     print(f"[K2 path] {tuple(rect.canvas)} canvas D=200: volume_reductions(K2) equal "
-          f"K1's 5 planes and smoothed_argmin_reference(K2) equals the K1 route, "
+          f"K1's 5 planes and their K1b disparity equals the K1 route, "
           f"bit for bit", flush=True)
 
     # 7. K3 vs its plain twin on integer-valued pairs
@@ -560,7 +681,7 @@ def main() -> int:
     reset_counts()
     disp_k3 = cbs.block_search_fused(rect.left, rect.right, cfg)
     torch.cuda.synchronize()
-    if counts() != {"K1": 0, "K2": 0, "K3": 1}:
+    if counts() != expected(K3=1):
         raise AssertionError(f"K3 path launches {counts()}: want one K3 only")
     launches["K3"] = counts()["K3"]
     if disp_k3.shape != tuple(rect.canvas) or not torch.isfinite(disp_k3).all():
@@ -576,12 +697,15 @@ def main() -> int:
     if agree_exact < 0.98:
         raise AssertionError(f"K3 vs exact route agreement {agree_exact:.4%} < 98%")
     k3_ms = _median_ms(lambda: cbs.block_search_fused(rect.left, rect.right, cfg), torch)
+    bounds["K3", "canvas"] = _matcher_bound(
+        dict(h=rect.canvas[0], w=rect.canvas[1], wl_extra=0, bs=17, min_d=0, max_d=200),
+        out_planes=1)
     k3_plain_ms = _median_ms(
         lambda: cbs.block_search_fused_plain(rect.left, rect.right, cfg), torch)
     times["K3", "canvas"] = (k3_ms, k3_plain_ms)
     print(f"[K3 path] K3 {k3_ms:.2f} ms, plain twin {k3_plain_ms:.2f} ms "
           f"(median of {REPEATS}); the exact route on this canvas: K1 "
-          f"{k1_rect_ms:.3f} ms + row scan {scan_ms:.2f} ms", flush=True)
+          f"{k1_rect_ms:.4f} ms + K1b {scan_ms:.4f} ms", flush=True)
 
     # 9. the whole chain, run_pair() with no F: the pose stage finds F
     rng = np.random.default_rng(SEED)
@@ -592,8 +716,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         reset_counts()
         res = run_pair(pair, config, output_dir=tmp, write_mesh=True, device=dev)
-        if counts() != {"K1": 1, "K2": 0, "K3": 0}:
-            raise AssertionError(f"run_pair() launches {counts()}: want one K1 only")
+        if counts() != expected(K1=1, K1b=1):
+            raise AssertionError(f"run_pair() launches {counts()}: want one K1 and one K1b")
         pose = res.pose
         P = pose.pose.cpu().numpy()
         rot, trans = pose_angles(P, R_true, T_true)
@@ -627,7 +751,7 @@ def main() -> int:
     for _ in range(3):
         reset_counts()
         r = run_pair(pair, config, device=dev)
-        if counts() != {"K1": 1, "K2": 0, "K3": 0}:
+        if counts() != expected(K1=1, K1b=1):
             raise AssertionError(f"run_pair() launches {counts()}")
         if not torch.equal(r.pose.pose, pose.pose):
             raise AssertionError("run_pair() pose is not deterministic")
@@ -651,11 +775,14 @@ def main() -> int:
              f"({100 * device_ms / wall_ms:.1f}% busy)" if kernels else
              "device time not measured (the profiler saw no device work)"), flush=True)
 
-    cv_src = "stereo_reconstruction_tpu_torch/csrc/cost_volume.cuh"
+    csrc = "stereo_reconstruction_tpu_torch/csrc/"
     kernels = [
-        ("K1", "fused matcher inputs", cv_src,
+        ("K1", "fused matcher inputs (left_layout_kernel + matcher_inputs_kernel)",
+         csrc + "matcher_inputs.cuh",
          "stereo_reconstruction_tpu/ops/pallas_cost_volume.py:68", ("K1", "b")),
-        ("K2", "cost volume", cv_src,
+        ("K1b", "exact smoothing row scan", csrc + "row_scan.cuh",
+         "stereo_reconstruction_tpu/ops/smoothing.py:125", ("K1b", "b")),
+        ("K2", "cost volume", csrc + "cost_volume.cuh",
          "stereo_reconstruction_tpu/ops/pallas_cost_volume.py:68", ("K2", "b")),
         ("K3", "fused block search",
          "stereo_reconstruction_tpu_torch/csrc/block_search.cuh",
@@ -670,6 +797,9 @@ def main() -> int:
         "max_abs_err": max_err[k],
         "ms": times[key][0],
         "plain_ms": times[key][1],
+        "bound_ms": bounds[key][0],
+        "bound_by": bounds[key][1],
+        "library_ms": None,             # no single PyTorch call computes it
         "at": "1128x1408 canvas, D=200, block 17",
     } for k, name, src, replaces, key in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,44 +1,40 @@
-// K1 and K2 — the Right-variant SSD cost, CUDA C++ for Hopper (sm_90a).
+// K2 — the Right-variant SSD cost volume, CUDA C++ for Hopper (sm_90a).
 //
-// Both replace the Pallas TPU kernel stereo_reconstruction_tpu/ops/
-// pallas_cost_volume.py::_kernel: K1 its mode "inputs" (wrapper
-// pallas_matcher_inputs), K2 its mode "volume" (wrapper
+// Replaces the Pallas TPU kernel stereo_reconstruction_tpu/ops/
+// pallas_cost_volume.py::_kernel in mode "volume" (wrapper
 // pallas_cost_volume_right_ssd). For every output pixel (y, x) of the right
-// image and every plane j in [0, D) (disparity d = min_d + j) they form the
+// image and every plane j in [0, D) (disparity d = min_d + j) it stores the
 // reference cost (BlockSearch.cpp:116-158)
 //
 //   cost = sqrt(SSD over [y-hbs, y+hbs) x [x-hbs, x+hbs) clipped to
 //               [0, H-1) x [0, W-1)) * (1 / area),
-//   +inf where area <= 0 or x + d + min(W-1-x, hbs) >= WL.
+//   +inf where area <= 0 or x + d + min(W-1-x, hbs) >= WL,
 //
-// K1 folds the planes, in increasing j, into five register accumulators:
-// m0 (min), a0 (first argmin, strict <), c_zero (plane j == -min_d),
-// diag_up (plane with d == x) and diag_lf (plane with d == x - 1); the
-// (D, H, W) volume is never written. K2 stores every plane, cost[j, y, x],
-// coalesced along x.
+// as cost[j, y, x], coalesced along x.
 //
 // Design: one CTA owns a 16 x 64 output tile. It stages the right band
 // (tile + 2*hbs halo) in shared memory once; for each d, plane_costs()
 // writes the masked channel-summed squared difference of the band to
 // shared memory, takes the vertical then the horizontal 2*hbs window sums
-// there, and hands each thread the cost of its 4 output pixels. The two
-// kernels differ only in what they do with those costs, so K1's planes
-// equal the reductions of K2's volume bit for bit on any input. No atomics
-// and no cross-CTA reduction: every output pixel belongs to one thread.
-// Left pixels are read through L1 (neighbouring d reuse them).
+// there, and hands each thread the cost of its 4 output pixels. Left pixels
+// are read through L1 (neighbouring d reuse them). Every output pixel
+// belongs to one thread: no atomics, no cross-CTA reduction.
 //
-// Bound: about H*W*D*(9 + 2*2*hbs) flops against images read once, so K1
-// is compute-bound (shared-memory adds and issue). K2 adds D*H*W*4 bytes
-// of stores (1.27 GB at 1128x1408, D=200: ~0.4 ms at 3.35 TB/s) to the
-// same compute, so it too is compute-bound and should take about K1's
-// time. Later work: sliding window sums instead of full 2*hbs re-sums, and
-// a ring of D chunks with TMA-staged left bands.
+// Bound: K2 must store D*H*W*4 bytes (1.27 GB at 1128x1408, D=200: 0.38 ms
+// at 3.35 TB/s) and do the same ~44 flops per (pixel, plane) as K1 (0.21 ms
+// at 67 TFLOP/s), so its bound is the stores. The routine re-sums both
+// windows from shared memory (~47 accesses and 3 barriers per (pixel,
+// plane)) and is bound by shared-memory bandwidth instead; K1
+// (matcher_inputs.cuh) keeps its arithmetic order with register sums, and
+// K2 moves onto that routine next.
 //
 // Numerics: every add and multiply is an explicit round-to-nearest
 // intrinsic (no FMA contraction), 1/area is multiplied, not divided, and
-// sqrt is IEEE. Window sums of integer-valued images below 2^24 are exact
-// in any order, so on such inputs the planes equal the plain PyTorch
-// version bit for bit. Do not build with --use_fast_math.
+// sqrt is IEEE. K1 adds in the same order, so volume_reductions of this
+// volume equal K1's planes bit for bit on any input. Window sums of
+// integer-valued images below 2^24 are exact in any order, so on such
+// inputs the volume equals the plain PyTorch version bit for bit. Do not
+// build with --use_fast_math.
 
 #pragma once
 
@@ -51,7 +47,7 @@ constexpr int kTileY = 16;
 constexpr int kThreads = 256;
 constexpr int kRowsPerThread = kTileY / (kThreads / kTileX);   // 4
 
-// Shared-memory bytes of one CTA of K1 or K2.
+// Shared-memory bytes of one CTA of K2.
 inline size_t cost_tile_smem(int hbs) {
   const size_t rows = kTileY + 2 * hbs;
   const size_t cols = kTileX + 2 * hbs;
@@ -173,64 +169,6 @@ __device__ __forceinline__ PlaneCosts plane_costs(const CostTile& t,
     plane.v[k] = valid ? cost : kInf;
   }
   return plane;
-}
-
-// K1: the five smoothing-scan planes.
-__global__ void __launch_bounds__(kThreads)
-matcher_inputs_kernel(const float* __restrict__ left,    // (H, WL, 3)
-                      const float* __restrict__ right,   // (H, W, 3)
-                      float* __restrict__ m0, int* __restrict__ a0,
-                      float* __restrict__ cz, float* __restrict__ du,
-                      float* __restrict__ dl,
-                      int H, int W, int WL, int hbs, int min_d, int D) {
-  extern __shared__ float smem[];
-  const float kInf = __int_as_float(0x7f800000);
-  CostTile t;
-  cost_tile_init(t, smem, right, H, W, hbs);
-
-  float acc_m0[kRowsPerThread], acc_cz[kRowsPerThread];
-  float acc_du[kRowsPerThread], acc_dl[kRowsPerThread];
-  int acc_a0[kRowsPerThread];
-#pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    acc_m0[k] = kInf;
-    acc_a0[k] = 0;
-    acc_cz[k] = kInf;
-    acc_du[k] = kInf;
-    acc_dl[k] = kInf;
-  }
-
-  // the planes past j_end are all +inf and change no accumulator
-  const int j_end = cost_tile_planes(t, W, WL, hbs, min_d, D);
-  const int x = t.x;
-  for (int j = 0; j < j_end; ++j) {
-    const int d = min_d + j;
-    const PlaneCosts plane = plane_costs(t, left, H, W, WL, hbs, d);
-#pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      const float c = plane.v[k];
-      if (c < acc_m0[k]) {
-        acc_m0[k] = c;
-        acc_a0[k] = j;
-      }
-      if (j == -min_d) acc_cz[k] = c;
-      if (x == d) acc_du[k] = c;
-      if (x - 1 == d) acc_dl[k] = c;
-    }
-  }
-
-  if (x >= W) return;
-#pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int y = t.y0 + t.ty + (kThreads / kTileX) * k;
-    if (y >= H) continue;
-    const size_t o = (size_t)y * W + x;
-    m0[o] = acc_m0[k];
-    a0[o] = acc_a0[k];
-    cz[o] = acc_cz[k];
-    du[o] = acc_du[k];
-    dl[o] = acc_dl[k];
-  }
 }
 
 // K2: the full (D, H, W) volume.

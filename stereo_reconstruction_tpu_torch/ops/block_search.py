@@ -6,7 +6,8 @@ for the SSD cost with ``min_disparity >= 0`` (a negative one raises on
 every backend: the JAX reference is wrong there, ROADMAP Queue 3):
 
   * kernel backend: K1 (``ops/cuda_cost_volume.py``) emits the five
-    smoothing-scan planes directly, then the exact row scan;
+    smoothing-scan planes directly, then K1b (``ops/cuda_row_scan.py``)
+    runs the exact row scan;
   * plain backend: the full cost volume (``ops/cost_volume.py``), its
     reductions, then the same row scan.
 
@@ -20,6 +21,7 @@ import torch
 from stereo_reconstruction_tpu_torch.config import MatcherConfig
 from stereo_reconstruction_tpu_torch.ops import cost_volume as cv
 from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
+from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
 from stereo_reconstruction_tpu_torch.ops import smoothing
 
 
@@ -61,7 +63,7 @@ def block_search_right(
     if kernel:
         planes = ccv.matcher_inputs(left, right, config.block_size,
                                     config.min_disparity, config.max_disparity)
-        return smoothing.smoothed_argmin_from_inputs(
+        return crs.row_scan(
             *planes, black, smooth_factor=config.smooth_factor,
             d_first=config.min_disparity,
             n_planes=config.max_disparity - config.min_disparity,

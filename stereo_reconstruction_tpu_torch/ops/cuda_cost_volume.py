@@ -1,20 +1,23 @@
-"""K1 and K2, the Right-variant SSD cost kernels (``csrc/cost_volume.cuh``),
-their plain PyTorch twins, and the wrappers that pick between them by
-device.
+"""K1 and K2, the Right-variant SSD cost kernels, their plain PyTorch
+twins, and the wrappers that pick between them by device.
 
 Both replace ``stereo_reconstruction_tpu/ops/pallas_cost_volume.py::_kernel``:
 
-* K1, mode ``"inputs"`` (``pallas_matcher_inputs``): the cost of every
-  disparity plane is folded on the fly into the five (H, W) planes of the
-  exact smoothing scan (``ops/smoothing.py``), so the (D, H, W) volume is
-  never written. Wrapper ``matcher_inputs``, count ``LAUNCHES``.
-* K2, mode ``"volume"`` (``pallas_cost_volume_right_ssd``): the full
-  (D, H, W) volume, +inf = invalid. Wrapper ``cost_volume``, count
-  ``VOLUME_LAUNCHES``; its twin is ``ops/cost_volume.py::
-  cost_volume_right_ssd``.
+* K1 (``csrc/matcher_inputs.cuh``), mode ``"inputs"``
+  (``pallas_matcher_inputs``): the cost of every disparity plane is folded
+  on the fly into the five (H, W) planes of the exact smoothing scan
+  (``ops/smoothing.py``), so the (D, H, W) volume is never written.
+  Wrapper ``matcher_inputs``, count ``LAUNCHES`` (one per call: the
+  call's two launches, the left image's layout pass and the kernel, are
+  one K1); block sizes up to 17 (``hbs <= 8``, as the TPU kernel's 24-row
+  bands; the limit is read from the kernel library).
+* K2 (``csrc/cost_volume.cuh``), mode ``"volume"``
+  (``pallas_cost_volume_right_ssd``): the full (D, H, W) volume, +inf =
+  invalid. Wrapper ``cost_volume``, count ``VOLUME_LAUNCHES``; its twin is
+  ``ops/cost_volume.py::cost_volume_right_ssd``.
 
-The two kernels share the per-plane cost routine, so ``volume_reductions``
-of K2's volume equals K1's planes bit for bit on any input.
+The two kernels add in the same order, so ``volume_reductions`` of K2's
+volume equals K1's planes bit for bit on any input.
 
 A wrapper takes the plain twin only for CPU tensors. A CUDA tensor
 launches the kernel or raises; nothing falls back. ``min_disparity < 0``
@@ -55,7 +58,15 @@ def matcher_inputs(left, right, block_size: int = 17,
     from stereo_reconstruction_tpu_torch.kernels.build import load_library
 
     lib = load_library()
+    hbs, max_hbs = (block_size - 1) // 2, lib.stpu_matcher_inputs_max_hbs()
+    if not 0 <= hbs <= max_hbs:
+        raise ValueError(f"K1 takes block sizes up to {2 * max_hbs + 1}, got {block_size} "
+                         "(backend='xla' takes any)")
     h, w = right.shape[:2]
+    # scratch for K1's own layout of the left image, zero-padded to
+    # W + min_d + D columns (csrc/matcher_inputs.cuh)
+    wl_pad = max(left.shape[1], w + min_disparity + D)
+    scratch = torch.empty((3 * h * wl_pad,), dtype=torch.float32, device=right.device)
     f32 = dict(dtype=torch.float32, device=right.device)
     m0 = torch.empty((h, w), **f32)
     a0 = torch.empty((h, w), dtype=torch.int32, device=right.device)
@@ -66,8 +77,8 @@ def matcher_inputs(left, right, block_size: int = 17,
     with torch.cuda.device(right.device):
         rc = lib.stpu_matcher_inputs(
             left.data_ptr(), right.data_ptr(), m0.data_ptr(), a0.data_ptr(),
-            cz.data_ptr(), du.data_ptr(), dl.data_ptr(),
-            h, w, left.shape[1], (block_size - 1) // 2, min_disparity, D, stream)
+            cz.data_ptr(), du.data_ptr(), dl.data_ptr(), scratch.data_ptr(),
+            h, w, left.shape[1], wl_pad, hbs, min_disparity, D, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -20,7 +20,8 @@ carry everything the recurrence needs:
 The row scan is a Python loop over rows (the up-neighbour recurrence);
 inside a row the left-neighbour dependence is a 3-state automaton whose
 per-pixel transition tables compose by log2(W) doubling steps. Ties keep
-the first index (strict ``<``), as in the reference.
+the first index (strict ``<``), as in the reference. This loop is the plain
+twin of K1b (``ops/cuda_row_scan.py``), which runs it on the card.
 """
 
 from __future__ import annotations

@@ -9,6 +9,9 @@ back-projection -> mesh, plus ``evaldisp`` when ground truth is present.
 ``fixed_F`` skips the pose stage (the shared-pose mode). Staged
 artefacts are the same as the JAX package's: ``<name>_disp.pfm``,
 ``<name>_pose.json`` and ``<name>_mesh.off``.
+
+The entry points run on the card (``device="cuda"``) unless the caller
+asks for the CPU; without a card they raise.
 """
 
 from __future__ import annotations
@@ -59,20 +62,30 @@ class PipelineResult:
     timings: Dict[str, float]
 
 
+def _device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist (no CPU
+    fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available; "
+                           "pass device='cpu' to run on the CPU")
+    return device
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def estimate_pose(pair: StereoPair, config: PipelineConfig = PipelineConfig(),
-                  device="cpu", uniforms: Optional[torch.Tensor] = None) -> PoseEstimate:
+                  device="cuda", uniforms: Optional[torch.Tensor] = None) -> PoseEstimate:
     """SIFT x2 -> match -> RANSAC eight-point -> filter -> BA on ``device``
     (reference runFullPoseEstimation, pose_estimation.cpp:4-115).
 
     ``uniforms`` are the RANSAC draws (``pose/ransac.py``); by default they
     come from a CPU generator seeded with ``config.seed``, so every device
     tries the same hypotheses. Everything after that runs on ``device``."""
-    device = torch.device(device)
+    device = _device(device)
     images = torch.stack([torch.as_tensor(np.asarray(pair.image_left)),
                           torch.as_tensor(np.asarray(pair.image_right))]).to(device)
     kp = detect_and_describe_batch(images, config.frontend)
@@ -131,7 +144,7 @@ def run_pair(
     png_compat: bool = False,
     fixed_F: Optional[np.ndarray] = None,
     backwarp_compat_left: bool = False,
-    device="cpu",
+    device="cuda",
     uniforms: Optional[torch.Tensor] = None,
 ) -> PipelineResult:
     """Reconstruction of one stereo pair on ``device`` (reference main.cpp
@@ -143,7 +156,7 @@ def run_pair(
     through uint8 like the reference (main.cpp:42,50);
     ``backwarp_compat_left`` back-warps disparity with the LEFT homography
     like the reference (rectification.cpp:78-88)."""
-    device = torch.device(device)
+    device = _device(device)
     timings: Dict[str, float] = {}
 
     t0 = time.perf_counter()
@@ -254,11 +267,11 @@ def reconstruct_from_disparity(
     disparity: np.ndarray,
     config: PipelineConfig = PipelineConfig(),
     output_path: Optional[str] = None,
-    device="cpu",
+    device="cuda",
 ):
     """Reconstruct from a precomputed disparity map (the reference's
     RUN_ALL=0 path, main.cpp:11,46-65): (vertex grid, depth)."""
-    device = torch.device(device)
+    device = _device(device)
     grid, depth = _reconstruct(
         pair, torch.as_tensor(np.asarray(disparity), device=device), config, device)
     if output_path:

@@ -1,5 +1,5 @@
-"""K1, K2, K3, the matcher and the pose stage on the card (marker ``cuda``;
-skipped without a GPU).
+"""K1, K1b, K2, K3, the matcher and the pose stage on the card (marker
+``cuda``; skipped without a GPU).
 
 A CUDA kernel has no CPU mode, so these run only on a machine with an
 NVIDIA GPU and ``nvcc``:
@@ -9,8 +9,9 @@ NVIDIA GPU and ``nvcc``:
 This file imports neither JAX nor the JAX package (the GPU machine has
 neither). On integer-valued pairs the window sums are exact, so K1's five
 planes, K2's volume and K3's disparity must equal the plain twins' bit for
-bit. K1 and K2 share their cost code, so K2's reductions equal K1's planes
-on any input. The pose stage is plain PyTorch; on the card it must give
+bit. K1 and K2 add in the same order, so K2's reductions equal K1's planes
+on any input. K1b (the exact row scan) equals its plain twin bit for bit
+on any planes. The pose stage is plain PyTorch; on the card it must give
 the port's CPU pose for the same RANSAC draws.
 """
 
@@ -25,12 +26,17 @@ from stereo_reconstruction_tpu_torch.config import MatcherConfig, PipelineConfig
 from stereo_reconstruction_tpu_torch.data.records import StereoPair
 from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
 from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
+from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
 from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
-from stereo_reconstruction_tpu_torch.ops.smoothing import volume_reductions
+from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
+from stereo_reconstruction_tpu_torch.ops.smoothing import (
+    smoothed_argmin_from_inputs,
+    volume_reductions,
+)
 from stereo_reconstruction_tpu_torch.pipeline import estimate_pose, run_pair
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from chip_smoke import nonplanar_scene, pose_angles  # noqa: E402
+from chip_smoke import nonplanar_scene, pose_angles, scan_volume  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -38,7 +44,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: K1-K3 are CUDA kernels with no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: K1, K1b, K2, K3 are CUDA kernels with no CPU mode")
     return torch.device("cuda")
 
 
@@ -60,6 +66,15 @@ K1_CASES = [
     (37, 150, 0, 17, 0, 40),
     (19, 70, 30, 17, 3, 100),     # planes beyond every candidate
     (20, 70, 0, 1, 0, 16),        # empty window: every plane +inf
+    (120, 200, 5, 17, 1, 30),     # interior tiles (no masked dsq)
+    (1, 40, 0, 5, 0, 8),          # one row: every window empty
+    # an interior tile whose band ends at row H-2, at the block sizes whose
+    # phase-A1 slots overrun the band (by 3, 4, 2, 2 rows): the last slot
+    # must not load below the image
+    (99, 200, 0, 5, 0, 20),
+    (101, 200, 0, 9, 1, 30),
+    (102, 200, 0, 11, 0, 20),
+    (104, 200, 0, 15, 0, 20),
 ]
 
 
@@ -106,14 +121,71 @@ def test_k2_volume_bit_equal_to_plain(cuda, rng, h, w, wl_extra, bs, min_d, max_
     assert torch.equal(got, want)          # +inf pattern included
 
 
-def test_k2_reductions_equal_k1_on_non_integer_pair(cuda, rng):
-    left = rng.uniform(0.0, 255.0, (33, 150, 3)).astype(np.float32)
+@pytest.mark.parametrize("h,w,bs", [(33, 150, 9), (120, 200, 17)])
+def test_k2_reductions_equal_k1_on_non_integer_pair(cuda, rng, h, w, bs):
+    left = rng.uniform(0.0, 255.0, (h, w, 3)).astype(np.float32)
     right = np.roll(left, -5, axis=1) + rng.normal(0.0, 3.0, left.shape).astype(np.float32)
-    args = (torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda), 9, 1, 40)
+    args = (torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda), bs, 1, 40)
     got = volume_reductions(ccv.cost_volume(*args), 1)
     want = ccv.matcher_inputs(*args)
     for name, g, wv in zip(("m0", "a0", "c_zero", "diag_up", "diag_lf"), got, want):
         assert g.dtype == wv.dtype and torch.equal(g, wv), name
+
+
+def test_k1_refuses_blocks_above_17(cuda, rng):
+    left, right = _integer_pair(rng, 21, 40)
+    with pytest.raises(ValueError, match="block sizes up to 17"):
+        ccv.matcher_inputs(torch.from_numpy(left).to(cuda),
+                           torch.from_numpy(right).to(cuda), 19, 0, 8)
+
+
+@pytest.mark.parametrize("h,w,d_first,sf,ties", [
+    (9, 1, 0, 0.9, False),
+    (9, 33, 2, 0.9, False),
+    (7, 100, 0, 1.0, True),
+    (5, 1100, 0, 0.9, False),       # 2 columns per thread
+    (5, 1100, 2, 0.5, True),
+    (4, 2100, 0, 0.9, False),       # 3 columns per thread
+    (3, 4096, 1, 0.9, True),        # the widest row: 4 columns per thread
+    (6, 70, 0, 0.0, False),         # inf * 0 = NaN compares false
+])
+def test_k1b_bit_equal_to_plain_on_random_planes(cuda, h, w, d_first, sf, ties):
+    cost, black = scan_volume(np.random.default_rng(w + d_first), h, w, 12, ties)
+    planes = volume_reductions(torch.from_numpy(cost).to(cuda), d_first)
+    black = torch.from_numpy(black).to(cuda)
+    kw = dict(smooth_factor=sf, d_first=d_first, n_planes=12)
+    got = crs.row_scan(*planes, black, **kw)
+    want = smoothed_argmin_from_inputs(*planes, black, **kw)
+    assert got.device.type == "cuda" and torch.equal(got, want)
+
+
+def test_k1b_bit_equal_to_plain_on_k1_planes(cuda, rng):
+    left, right = _integer_pair(rng, 70, 130)
+    L, R = torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)
+    planes = ccv.matcher_inputs(L, R, 7, 0, 30)
+    black = black_pixel_mask(R.float())
+    got = crs.row_scan(*planes, black, n_planes=30)
+    want = smoothed_argmin_from_inputs(*planes, black, n_planes=30)
+    assert torch.equal(got, want)
+
+
+def test_k1b_wrapper_checks_and_counts(cuda):
+    cost, black = scan_volume(np.random.default_rng(0), 4, 40, 8)
+    planes = volume_reductions(torch.from_numpy(cost).to(cuda), 0)
+    black = torch.from_numpy(black).to(cuda)
+    before = crs.LAUNCHES
+    crs.row_scan(*planes, black, n_planes=8)
+    assert crs.LAUNCHES == before + 1
+    smoothed_argmin_from_inputs(*planes, black, n_planes=8)
+    assert crs.LAUNCHES == before + 1
+    with pytest.raises(ValueError, match="int32"):
+        crs.row_scan(planes[0], planes[1].long(), *planes[2:], black, n_planes=8)
+    assert crs.max_width() == 4096
+    wide = torch.zeros((2, crs.max_width() + 1), device=cuda)
+    with pytest.raises(ValueError, match="W <="):
+        crs.row_scan(wide, wide.int(), wide, wide, wide, wide.bool(), n_planes=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        crs.row_scan(*(p.t().contiguous().t() for p in planes), black, n_planes=8)
 
 
 @pytest.mark.parametrize("h,w,wl_extra,bs,min_d,max_d,tw,iters,mode", [
@@ -175,12 +247,30 @@ def test_pose_stage_on_card_matches_cpu(cuda):
     assert rot < 1.0 and trans < 5.0
 
 
+def _launches():
+    return (ccv.LAUNCHES, crs.LAUNCHES, ccv.VOLUME_LAUNCHES, cbs.LAUNCHES)
+
+
 def test_run_pair_without_F_launches_k1_once(cuda):
     pair, _, _ = _posed_pair()
     cfg = PipelineConfig(matcher=MatcherConfig(block_size=7, max_disparity=80))
-    before = (ccv.LAUNCHES, ccv.VOLUME_LAUNCHES, cbs.LAUNCHES)
+    before = _launches()
     res = run_pair(pair, cfg, device=cuda)
-    assert (ccv.LAUNCHES, ccv.VOLUME_LAUNCHES, cbs.LAUNCHES) == (
-        before[0] + 1, before[1], before[2])
+    assert _launches() == (before[0] + 1, before[1] + 1, before[2], before[3])
     assert res.metrics["pose_ok"] == 1.0
     assert res.disparity.shape == (240, 320) and np.mean(res.disparity > 0) > 0.5
+
+
+def test_run_pair_with_F_launches_k1_and_k1b_once(cuda):
+    left, right, K, _, _, F, _ = nonplanar_scene(np.random.default_rng(4), 240, 320)
+    pair = StereoPair(left, right, K.astype(np.float32), K.astype(np.float32), name="F")
+    cfg = PipelineConfig(matcher=MatcherConfig(block_size=7, max_disparity=80))
+    before = _launches()
+    res = run_pair(pair, cfg, fixed_F=F, device=cuda)
+    assert _launches() == (before[0] + 1, before[1] + 1, before[2], before[3])
+    plain = run_pair(pair, cfg.replace(matcher=MatcherConfig(block_size=7, max_disparity=80,
+                                                             backend="xla")),
+                     fixed_F=F, device=cuda)
+    # the rectified canvas is not integer-valued, so the two backends' window
+    # sums may round apart on near-tie pixels (chip_smoke holds 99.5%)
+    assert np.mean(res.disparity == plain.disparity) >= 0.995

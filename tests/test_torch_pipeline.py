@@ -101,7 +101,7 @@ def _run_both(fields, F, tmp_path, **kw):
     want = jpipe.run_pair(JaxStereoPair(**fields), JAX_CONFIG, fixed_F=F,
                           output_dir=str(tmp_path / "jax"), **kw)
     got = tpipe.run_pair(StereoPair(**fields), from_jax_config(JAX_CONFIG), fixed_F=F,
-                         output_dir=str(tmp_path / "torch"), **kw)
+                         output_dir=str(tmp_path / "torch"), device="cpu", **kw)
     return want, got
 
 
@@ -133,7 +133,8 @@ def test_run_pair_metrics_match_jax(scene, tmp_path):
 def test_run_pair_stages_artefacts(scene, tmp_path):
     fields, F = scene
     res = tpipe.run_pair(StereoPair(**fields), from_jax_config(JAX_CONFIG),
-                         output_dir=str(tmp_path), write_mesh=True, fixed_F=F)
+                         output_dir=str(tmp_path), write_mesh=True, fixed_F=F,
+                         device="cpu")
     np.testing.assert_array_equal(read_pfm(str(tmp_path / "scene_disp.pfm")),
                                   res.disparity)
     with open(tmp_path / "scene_pose.json") as f:
@@ -165,7 +166,7 @@ def posed(tmp_path_factory):
     u = jax_uniforms(POSE_CONFIG.seed, POSE_CONFIG.ransac.num_hypotheses, n)
     got = tpipe.run_pair(StereoPair(**fields), from_jax_config(POSE_CONFIG),
                          output_dir=str(out / "torch"), write_mesh=True,
-                         uniforms=torch.from_numpy(u))
+                         uniforms=torch.from_numpy(u), device="cpu")
     return want, got, R, T, out / "torch"
 
 
@@ -209,7 +210,7 @@ def test_degenerate_pose_falls_back_to_the_raw_pair(tmp_path):
                   intrinsics_right=K, name="flat")
     want = jpipe.run_pair(JaxStereoPair(**fields), JAX_CONFIG)
     got = tpipe.run_pair(StereoPair(**fields), from_jax_config(JAX_CONFIG),
-                         output_dir=str(tmp_path))
+                         output_dir=str(tmp_path), device="cpu")
     assert want.metrics["pose_ok"] == got.metrics["pose_ok"] == 0.0
     assert int(got.pose.num_inliers) == int(want.pose.num_inliers) == 0
     assert not bool(got.pose.valid)
@@ -227,7 +228,7 @@ def test_reconstruct_from_disparity_matches_jax(scene, tmp_path):
         JaxStereoPair(**fields), disp, cfg, output_path=str(tmp_path / "j.off"))
     grid_g, depth_g = tpipe.reconstruct_from_disparity(
         StereoPair(**fields), disp, from_jax_config(cfg),
-        output_path=str(tmp_path / "t.off"))
+        output_path=str(tmp_path / "t.off"), device="cpu")
     np.testing.assert_array_equal(np.isneginf(depth_g), np.isneginf(depth_w))
     fin = np.isfinite(depth_w)
     np.testing.assert_allclose(depth_g[fin], depth_w[fin], rtol=1e-5)
