@@ -35,13 +35,18 @@ code 1, no result line) if anything is off:
    K1's five planes, and the disparity the K1 route's, bit for bit;
 7. K3 against its twin on integer-valued pairs, bit equal: shape (c),
    two tiles with a tile width that does not divide W at
-   ``row_smooth_iters`` 1, 2, 3 and every ``smooth_mode``, and three
-   512-wide tiles at block 17;
+   ``row_smooth_iters`` 1, 2, 3 and every ``smooth_mode``, three
+   512-wide tiles at block 17, ``smooth_factor`` 0 at three seeds (a NaN
+   from +inf * 0 wins the minimum: column 37 takes -37), 2-pixel tiles at
+   3 sweeps (each tile boundary chains to the one before), shape (d), and
+   a 4200-wide row;
 8. K3's path at full width: the rectified canvas, D=200, block 17,
-   ``tile_width`` 512 (3 tiles), >= 99.5% agreement with its twin (the
-   canvas is not integer-valued) and >= 98% with the exact K1 route (the
-   JAX package's two-tile bound, tests/test_pallas_kernel.py); median K3
-   and twin ms over 5 runs;
+   ``tile_width`` 512 (3 tiles), equal to itself over two runs, >= 99.5%
+   agreement with its twin (the canvas is not integer-valued) and >= 98%
+   with the exact K1 route (the JAX package's two-tile bound,
+   tests/test_pallas_kernel.py); median K3 and twin ms over 5 runs, K3
+   against K1 + K1b on the same canvas, and a profiled K3 call split by
+   kernel (layout pass, cost pass, row chain);
 9. the whole chain, ``run_pair()`` with no F, on the 750x900 non-planar
    scene (``nonplanar_scene``) at the default config (500 keypoints, 256
    RANSAC hypotheses, BA over 60 points, D=200, block 17): exactly one K1
@@ -372,6 +377,27 @@ def _pose_profile(estimate, torch):
     return kernels, device_us / 1e3, wall_ms
 
 
+def _kernel_split(call, torch):
+    """Device ms of one call by kernel name (torch.profiler), {} if the
+    profiler saw no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            name = next((k for k in ("left_layout_kernel", "block_search_costs_kernel",
+                                     "block_search_rows_kernel") if k in e.key), e.key[:40])
+            split[name] = split.get(name, 0.0) + us / 1e3
+    return split
+
+
 def _true_disparity(H_lr, F, h, w):
     """Ground truth for the right image in its original frame: the
     rectified-frame disparity x_l - x_r of each right pixel's true match,
@@ -503,8 +529,8 @@ def main() -> int:
         bounds["K2", key] = _matcher_bound(s, out_planes=s["max_d"] - s["min_d"])
         print(f"[kernel] shape ({key}): volume bit-equal, +inf pattern included; "
               f"K2 {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPEATS}); "
-              f"bound {bounds['K2', key][0]:.4f} ms; K1 / K2 "
-              f"{times['K1', key][0] / k_ms:.3f}", flush=True)
+              f"bound {bounds['K2', key][0]:.4f} ms; K2 / K1 "
+              f"{k_ms / times['K1', key][0]:.3f}", flush=True)
 
     # K1b on planted random planes: zeros, sentinels, black pixels and ties,
     # W from 1 to the widest row it takes
@@ -652,29 +678,44 @@ def main() -> int:
           f"bit for bit", flush=True)
 
     # 7. K3 vs its plain twin on integer-valued pairs
-    k3_cases = [dict(h=21, w=40, wl_extra=9, bs=5, min_d=2, max_d=12, tw=512,
+    base = dict(wl_extra=0, min_d=0, seed=SEED, sf=0.9)
+    k3_cases = [dict(base, h=21, w=40, wl_extra=9, bs=5, min_d=2, max_d=12, tw=512,
                      iters=2, mode="reference")]
-    k3_cases += [dict(h=20, w=90, wl_extra=0, bs=5, min_d=0, max_d=8, tw=64,
-                      iters=iters, mode=mode)
+    k3_cases += [dict(base, h=20, w=90, bs=5, max_d=8, tw=64, iters=iters, mode=mode)
                  for iters in (1, 2, 3) for mode in ("reference", "intended", "none")]
-    k3_cases += [dict(h=64, w=1100, wl_extra=0, bs=17, min_d=0, max_d=64, tw=512,
-                      iters=2, mode="reference")]
+    k3_cases += [
+        dict(base, h=64, w=1100, bs=17, max_d=64, tw=512, iters=2, mode="reference"),
+        # smooth_factor 0: +inf * 0 is NaN, which wins the minimum (column 37)
+        *(dict(base, h=20, w=40, bs=5, max_d=30, tw=64, iters=2, mode="intended",
+               sf=0.0, seed=seed) for seed in (0, 1, 2)),
+        # tiles narrower than the sweep count: each boundary chains to the last
+        dict(base, h=20, w=90, bs=5, max_d=8, tw=2, iters=3, mode="intended"),
+        # shape (d): the bottom tile's band ends at row H-2
+        dict(base, h=101, w=200, bs=9, min_d=1, max_d=31, tw=64, iters=2,
+             mode="reference"),
+        # wider than 4096: the row chain has no width limit
+        dict(base, h=8, w=4200, bs=5, max_d=16, tw=1024, iters=2, mode="reference"),
+    ]
     for c in k3_cases:
-        rng = np.random.default_rng(SEED)
+        rng = np.random.default_rng(c["seed"])
         left_np, right_np = _random_stereo(rng, c["h"], c["w"], wl_extra=c["wl_extra"])
         left = torch.from_numpy(left_np).to(dev, torch.float32)
         right = torch.from_numpy(right_np).to(dev, torch.float32)
         cfg = MatcherConfig(block_size=c["bs"], min_disparity=c["min_d"],
-                            max_disparity=c["max_d"], row_smooth_iters=c["iters"])
+                            max_disparity=c["max_d"], row_smooth_iters=c["iters"],
+                            smooth_factor=c["sf"])
         got = cbs.block_search_fused(left, right, cfg, c["tw"], c["mode"])
         want = cbs.block_search_fused_plain(left, right, cfg, c["tw"], c["mode"])
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"K3 != plain on {c}: "
                                  f"{(got != want).float().mean().item():.3%} of pixels")
+        if c["sf"] == 0.0 and not bool((got[:, 37] == -37).all()):
+            raise AssertionError(f"K3 at smooth_factor 0: column 37 is not -37 on {c}")
         max_err["K3"] = max(max_err["K3"], _max_abs_err(got, want))
     print(f"[kernel] K3 bit-equal to its twin on {len(k3_cases)} integer cases "
-          f"(tiles 1-3, iters 1-3, all smooth modes, min_d 2)", flush=True)
+          f"(tiles 1-3 and 2 px wide, iters 1-3, all smooth modes, min_d 2, "
+          f"smooth_factor 0, shape (d), W 4200)", flush=True)
 
     # 8. K3's path at full width on the canvas
     cfg = MatcherConfig()                      # block 17, D=200, 2 sweeps
@@ -686,12 +727,15 @@ def main() -> int:
     launches["K3"] = counts()["K3"]
     if disp_k3.shape != tuple(rect.canvas) or not torch.isfinite(disp_k3).all():
         raise AssertionError(f"K3 path: bad disparity {tuple(disp_k3.shape)}")
+    if not torch.equal(cbs.block_search_fused(rect.left, rect.right, cfg), disp_k3):
+        raise AssertionError("K3 differs between two runs on the canvas")
     twin = cbs.block_search_fused_plain(rect.left, rect.right, cfg)
     agree_twin = float((disp_k3 == twin).double().mean())
     agree_exact = float((disp_k3 == disp_k1).double().mean())
     print(f"[K3 path] {tuple(rect.canvas)} canvas D=200 tile 512 "
-          f"({-(-rect.canvas[1] // 512)} tiles): agreement {agree_twin:.6f} with "
-          f"its twin, {agree_exact:.6f} with the exact K1 route", flush=True)
+          f"({-(-rect.canvas[1] // 512)} tiles): equal to itself over two runs; "
+          f"agreement {agree_twin:.6f} with its twin, {agree_exact:.6f} with the "
+          f"exact K1 route", flush=True)
     if agree_twin < 0.995:
         raise AssertionError(f"K3 vs twin agreement {agree_twin:.4%} < 99.5%")
     if agree_exact < 0.98:
@@ -703,9 +747,19 @@ def main() -> int:
     k3_plain_ms = _median_ms(
         lambda: cbs.block_search_fused_plain(rect.left, rect.right, cfg), torch)
     times["K3", "canvas"] = (k3_ms, k3_plain_ms)
-    print(f"[K3 path] K3 {k3_ms:.2f} ms, plain twin {k3_plain_ms:.2f} ms "
+    exact_ms = k1_rect_ms + scan_ms
+    print(f"[K3 path] K3 {k3_ms:.4f} ms, plain twin {k3_plain_ms:.2f} ms "
           f"(median of {REPEATS}); the exact route on this canvas: K1 "
-          f"{k1_rect_ms:.4f} ms + K1b {scan_ms:.4f} ms", flush=True)
+          f"{k1_rect_ms:.4f} ms + K1b {scan_ms:.4f} ms; K3 / (K1 + K1b) "
+          f"{k3_ms / exact_ms:.3f}", flush=True)
+    split = _kernel_split(lambda: cbs.block_search_fused(rect.left, rect.right, cfg), torch)
+    if split:
+        rows_ms = split.get("block_search_rows_kernel", 0.0)
+        print("[K3 path] profiled K3 call, device ms by kernel: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; row chain {1e3 * rows_ms / rect.canvas[0]:.3f} us per row", flush=True)
+    else:
+        print("[K3 path] K3 phase split not measured (the profiler saw no device work)")
 
     # 9. the whole chain, run_pair() with no F: the pose stage finds F
     rng = np.random.default_rng(SEED)

@@ -1,29 +1,49 @@
-// Launcher of K2 (kernel and design notes: cost_volume.cuh), with a plain C
-// interface for ctypes.
+// Launcher of K2 (kernel and design notes: cost_volume.cuh and
+// window_cost.cuh), with a plain C interface for ctypes.
 
 #include "cost_volume.cuh"
 
-using stpu::kThreads;
-using stpu::kTileX;
-using stpu::kTileY;
+namespace {
 
-// Launches K2 on `stream`; returns the cudaError_t of the launch (0 = ok).
-// left (H, WL, 3) and right (H, W, 3) float32 in, cost (D, H, W) float32
-// out, all contiguous on the device.
-extern "C" int stpu_cost_volume(const float* left, const float* right,
-                                float* cost, int H, int W, int WL, int hbs,
-                                int min_d, int D, void* stream) {
-  if (H <= 0 || W <= 0 || WL <= 0 || hbs < 0 || min_d < 0 || D < 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = stpu::cost_tile_smem(hbs);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stpu::cost_volume_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+struct Launch {
+  const float2* left_rg;
+  const float* left_b;
+  const float* right;
+  float* cost;
+  int H, W, WL, WLp, min_d, D;
+  cudaStream_t stream;
+
+  template <int HBS>
+  cudaError_t run() {
+    return stpu::launch_tiles<HBS>(stpu::cost_volume_kernel<HBS>, H, W, stream,
+                                   left_rg, left_b, right, cost, H, W, WL, WLp,
+                                   min_d, D);
   }
-  const dim3 grid((W + kTileX - 1) / kTileX, (H + kTileY - 1) / kTileY);
-  stpu::cost_volume_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      left, right, cost, H, W, WL, hbs, min_d, D);
-  return (int)cudaGetLastError();
+};
+
+}  // namespace
+
+// Launches K2 on `stream`: the left image's layout pass into `scratch`,
+// then the kernel. Returns the cudaError_t of the launches (0 = ok). All
+// pointers are device pointers to contiguous float32 arrays: left
+// (H, WL, 3), right (H, W, 3), cost (D, H, W) out (16-byte aligned),
+// scratch 3 * H * WLp floats (8-byte aligned) with WLp >= max(WL, W + min_d
+// + D). hbs must lie in [0, stpu_matcher_inputs_max_hbs()] and 3 * H * WLp
+// below 2^31.
+extern "C" int stpu_cost_volume(const float* left, const float* right, float* cost,
+                                float* scratch, int H, int W, int WL, int WLp, int hbs,
+                                int min_d, int D, void* stream) {
+  if (H <= 0 || W <= 0 || WL <= 0 || min_d < 0 || D < 0 ||
+      !stpu::wc::layout_fits(H, W, WL, WLp, min_d, D) || hbs < 0 ||
+      hbs > stpu::wc::kMaxHbs)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  Launch l{nullptr, nullptr, right, cost, H, W, WL, WLp, min_d, D, s};
+  float2* rg;
+  float* b;
+  const cudaError_t e = stpu::launch_left_layout(left, scratch, H, WL, WLp, s, &rg, &b);
+  if (e != cudaSuccess) return (int)e;
+  l.left_rg = rg;
+  l.left_b = b;
+  return (int)stpu::dispatch_hbs(hbs, l);
 }

@@ -1,37 +1,33 @@
-// Launcher of K1 (kernel and design notes: matcher_inputs.cuh), with a
-// plain C interface for ctypes.
-
-#include <climits>
+// Launcher of K1 (kernel and design notes: matcher_inputs.cuh and
+// window_cost.cuh), with a plain C interface for ctypes.
 
 #include "matcher_inputs.cuh"
 
 namespace {
 
-template <int HBS>
-cudaError_t launch(const float2* left_rg, const float* left_b, const float* right,
-                   float* m0, int* a0, float* cz, float* du, float* dl, int H,
-                   int W, int WL, int WLp, int min_d, int D, cudaStream_t stream) {
-  using stpu::k1::kThreads;
-  using stpu::k1::kTX;
-  using stpu::k1::kTY;
-  constexpr size_t smem = stpu::k1::Tile<HBS>::kSmem;
-  auto kernel = stpu::matcher_inputs_kernel<HBS>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+struct Launch {
+  const float2* left_rg;
+  const float* left_b;
+  const float* right;
+  float* m0;
+  int* a0;
+  float *cz, *du, *dl;
+  int H, W, WL, WLp, min_d, D;
+  cudaStream_t stream;
+
+  template <int HBS>
+  cudaError_t run() {
+    return stpu::launch_tiles<HBS>(stpu::matcher_inputs_kernel<HBS>, H, W, stream,
+                                   left_rg, left_b, right, m0, a0, cz, du, dl, H, W,
+                                   WL, WLp, min_d, D);
   }
-  const dim3 grid((W + kTX - 1) / kTX, (H + kTY - 1) / kTY);
-  kernel<<<grid, kThreads, smem, stream>>>(left_rg, left_b, right, m0, a0, cz, du,
-                                           dl, H, W, WL, WLp, min_d, D);
-  return cudaGetLastError();
-}
+};
 
 }  // namespace
 
-// The largest half block K1 takes (block sizes up to 2 * 8 + 1 = 17); the
-// Python wrapper reads it from here.
-extern "C" int stpu_matcher_inputs_max_hbs() { return stpu::k1::kMaxHbs; }
+// The largest half block the window-cost routine takes (block sizes up to
+// 2 * 8 + 1 = 17) for K1, K2 and K3; the Python wrappers read it from here.
+extern "C" int stpu_matcher_inputs_max_hbs() { return stpu::wc::kMaxHbs; }
 
 // Launches K1 on `stream`: the left image's layout pass into `scratch`,
 // then the kernel. Returns the cudaError_t of the launches (0 = ok). All
@@ -44,27 +40,17 @@ extern "C" int stpu_matcher_inputs(const float* left, const float* right,
                                    float* dl, float* scratch, int H, int W,
                                    int WL, int WLp, int hbs, int min_d, int D,
                                    void* stream) {
-  if (H <= 0 || W <= 0 || WL <= 0 || min_d < 0 || D < 0 || WLp < WL ||
-      WLp < (long long)W + min_d + D || 3LL * H * WLp >= INT_MAX ||
-      hbs < 0 || hbs > stpu::k1::kMaxHbs)
+  if (H <= 0 || W <= 0 || WL <= 0 || min_d < 0 || D < 0 ||
+      !stpu::wc::layout_fits(H, W, WL, WLp, min_d, D) || hbs < 0 ||
+      hbs > stpu::wc::kMaxHbs)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  float2* rg = reinterpret_cast<float2*>(scratch);
-  float* b = scratch + 2 * (size_t)H * WLp;
-  const int n = H * WLp;
-  stpu::left_layout_kernel<<<(n + 255) / 256, 256, 0, s>>>(left, rg, b, H, WL, WLp);
-  const cudaError_t e = cudaGetLastError();
+  Launch l{nullptr, nullptr, right, m0, a0, cz, du, dl, H, W, WL, WLp, min_d, D, s};
+  float2* rg;
+  float* b;
+  const cudaError_t e = stpu::launch_left_layout(left, scratch, H, WL, WLp, s, &rg, &b);
   if (e != cudaSuccess) return (int)e;
-  switch (hbs) {
-    case 0: return (int)launch<0>(rg, b, right, m0, a0, cz, du, dl, H, W, WL, WLp, min_d, D, s);
-    case 1: return (int)launch<1>(rg, b, right, m0, a0, cz, du, dl, H, W, WL, WLp, min_d, D, s);
-    case 2: return (int)launch<2>(rg, b, right, m0, a0, cz, du, dl, H, W, WL, WLp, min_d, D, s);
-    case 3: return (int)launch<3>(rg, b, right, m0, a0, cz, du, dl, H, W, WL, WLp, min_d, D, s);
-    case 4: return (int)launch<4>(rg, b, right, m0, a0, cz, du, dl, H, W, WL, WLp, min_d, D, s);
-    case 5: return (int)launch<5>(rg, b, right, m0, a0, cz, du, dl, H, W, WL, WLp, min_d, D, s);
-    case 6: return (int)launch<6>(rg, b, right, m0, a0, cz, du, dl, H, W, WL, WLp, min_d, D, s);
-    case 7: return (int)launch<7>(rg, b, right, m0, a0, cz, du, dl, H, W, WL, WLp, min_d, D, s);
-    case 8: return (int)launch<8>(rg, b, right, m0, a0, cz, du, dl, H, W, WL, WLp, min_d, D, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  l.left_rg = rg;
+  l.left_b = b;
+  return (int)stpu::dispatch_hbs(hbs, l);
 }

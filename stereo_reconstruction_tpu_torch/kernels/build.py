@@ -107,9 +107,9 @@ def load_library() -> ctypes.CDLL:
         lib.stpu_matcher_inputs_max_hbs.restype = i
         lib.stpu_row_scan_max_width.argtypes = []
         lib.stpu_row_scan_max_width.restype = i
-        lib.stpu_cost_volume.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.stpu_cost_volume.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
         lib.stpu_cost_volume.restype = i
-        lib.stpu_block_search.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+        lib.stpu_block_search.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
                                           i, i, ctypes.c_float, i, i, p]
         lib.stpu_block_search.restype = i
         lib.stpu_row_scan.argtypes = [p, p, p, p, p, p, p, i, i, ctypes.c_float,

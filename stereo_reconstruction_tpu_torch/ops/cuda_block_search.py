@@ -21,6 +21,19 @@ by ``smooth_factor``: sign -1 in mode ``"reference"`` (the reference's
 sign quirk), +1 in ``"intended"``, no discount in ``"none"``. This is not
 the exact recurrence of ``ops/smoothing.py``.
 
+Where a discounted cost of a column is NaN (``+inf * 0`` at
+``smooth_factor`` 0), ``torch.min`` lets the NaN win and the column takes
+its sentinel ``-x`` for that sweep, as ``jnp.min`` does in the TPU kernel.
+
+K3 is a parallel cost pass over all tiles (K1's window-cost routine,
+storing the volume and each pixel's three smallest costs) and a row chain
+in one CTA (``csrc/block_search.cuh``); the call's three launches (the
+left layout pass, the two kernels) count as one K3 launch. Its scratch is
+the (D, H, W) float32 volume, D*H*W*4 bytes (1.27 GB at 1128x1408,
+D=200), plus (6, H, W) for the top three, the layout pass's 3*H*W_pad
+floats and 8*W + n_tiles floats for the chain. K3 takes block sizes 3 to
+17, D up to 65535 (16-bit plane indices), any width and any tile width.
+
 The wrapper takes the plain twin only for CPU tensors. A CUDA tensor
 launches the kernel or raises; nothing falls back. ``min_disparity < 0``
 raises ``ValueError`` on every device.
@@ -35,15 +48,15 @@ from stereo_reconstruction_tpu_torch.ops.cost_volume import (
     black_pixel_mask,
     cost_volume_right_ssd,
 )
-from stereo_reconstruction_tpu_torch.ops.cuda_cost_volume import cuda_images
+from stereo_reconstruction_tpu_torch.ops.cuda_cost_volume import (
+    cuda_images,
+    window_cost_setup,
+)
 
 # kernel launches made by ``block_search_fused`` (the plain twin never counts)
 LAUNCHES = 0
 
 SMOOTH_SIGN = {"reference": -1, "intended": 1, "none": 0}
-
-# the kernel's one CTA has a thread per tile column
-MAX_TILE_WIDTH = 1024
 
 
 def tile_width_for(w: int, tile_width: int) -> int:
@@ -125,24 +138,21 @@ def block_search_fused(left, right, config: MatcherConfig = MatcherConfig(),
                                  config.max_disparity, "K3")
     h, w = right.shape[:2]
     tw = tile_width_for(w, tile_width)
-    if not 1 <= tw <= MAX_TILE_WIDTH:
-        raise ValueError(f"K3 needs a tile width in [1, {MAX_TILE_WIDTH}], got {tw}")
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
-    lib = load_library()
-    hbs = (config.block_size - 1) // 2
+    if tw < 1:
+        raise ValueError(f"K3 needs a tile width >= 1, got {tw}")
+    lib, hbs, wl_pad, layout = window_cost_setup(left, right, config.block_size,
+                                                 config.min_disparity, D, "K3")
     f32 = dict(dtype=torch.float32, device=right.device)
     disp = torch.empty((h, w), **f32)
-    ring = torch.empty((2 * hbs, D, tw), **f32)
-    cst = torch.empty((D, tw), **f32)
-    boundary = torch.empty((h,), **f32)
-    colsum = torch.empty((D, tw), dtype=torch.float64, device=right.device)
+    cost = torch.empty((D, h, w), **f32)
+    top = torch.empty((6, h, w), **f32)
+    rows = torch.empty((8 * w + -(-w // tw),), **f32)
     stream = torch.cuda.current_stream(right.device).cuda_stream
     with torch.cuda.device(right.device):
         rc = lib.stpu_block_search(
-            left.data_ptr(), right.data_ptr(), disp.data_ptr(), ring.data_ptr(),
-            cst.data_ptr(), boundary.data_ptr(), colsum.data_ptr(), h, w,
-            left.shape[1], hbs, config.min_disparity, D, tw, config.smooth_factor,
+            left.data_ptr(), right.data_ptr(), disp.data_ptr(), cost.data_ptr(),
+            top.data_ptr(), layout.data_ptr(), rows.data_ptr(), h, w, left.shape[1],
+            wl_pad, hbs, config.min_disparity, D, tw, config.smooth_factor,
             SMOOTH_SIGN[smooth_mode], config.row_smooth_iters, stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {rc}")

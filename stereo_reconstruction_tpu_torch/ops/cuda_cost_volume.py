@@ -1,23 +1,25 @@
 """K1 and K2, the Right-variant SSD cost kernels, their plain PyTorch
 twins, and the wrappers that pick between them by device.
 
-Both replace ``stereo_reconstruction_tpu/ops/pallas_cost_volume.py::_kernel``:
+Both replace ``stereo_reconstruction_tpu/ops/pallas_cost_volume.py::_kernel``
+and both are sinks of one window-cost routine (``csrc/window_cost.cuh``):
 
 * K1 (``csrc/matcher_inputs.cuh``), mode ``"inputs"``
   (``pallas_matcher_inputs``): the cost of every disparity plane is folded
   on the fly into the five (H, W) planes of the exact smoothing scan
   (``ops/smoothing.py``), so the (D, H, W) volume is never written.
-  Wrapper ``matcher_inputs``, count ``LAUNCHES`` (one per call: the
-  call's two launches, the left image's layout pass and the kernel, are
-  one K1); block sizes up to 17 (``hbs <= 8``, as the TPU kernel's 24-row
-  bands; the limit is read from the kernel library).
+  Wrapper ``matcher_inputs``, count ``LAUNCHES``.
 * K2 (``csrc/cost_volume.cuh``), mode ``"volume"``
   (``pallas_cost_volume_right_ssd``): the full (D, H, W) volume, +inf =
   invalid. Wrapper ``cost_volume``, count ``VOLUME_LAUNCHES``; its twin is
   ``ops/cost_volume.py::cost_volume_right_ssd``.
 
-The two kernels add in the same order, so ``volume_reductions`` of K2's
-volume equals K1's planes bit for bit on any input.
+Each call is one launch of its count: the left image's layout pass and the
+kernel. Both take block sizes up to 17 (``hbs <= 8``, as the TPU kernel's
+24-row bands; the limit is read from the kernel library) and raise
+``ValueError`` beyond. The routine adds in one order for every sink, so
+``volume_reductions`` of K2's volume equals K1's planes bit for bit on any
+input.
 
 A wrapper takes the plain twin only for CPU tensors. A CUDA tensor
 launches the kernel or raises; nothing falls back. ``min_disparity < 0``
@@ -55,18 +57,9 @@ def matcher_inputs(left, right, block_size: int = 17,
         return matcher_inputs_plain(left, right, block_size, min_disparity,
                                     max_disparity)
     left, right, D = cuda_images(left, right, min_disparity, max_disparity, "K1")
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
-    lib = load_library()
-    hbs, max_hbs = (block_size - 1) // 2, lib.stpu_matcher_inputs_max_hbs()
-    if not 0 <= hbs <= max_hbs:
-        raise ValueError(f"K1 takes block sizes up to {2 * max_hbs + 1}, got {block_size} "
-                         "(backend='xla' takes any)")
+    lib, hbs, wl_pad, scratch = window_cost_setup(left, right, block_size,
+                                                  min_disparity, D, "K1")
     h, w = right.shape[:2]
-    # scratch for K1's own layout of the left image, zero-padded to
-    # W + min_d + D columns (csrc/matcher_inputs.cuh)
-    wl_pad = max(left.shape[1], w + min_disparity + D)
-    scratch = torch.empty((3 * h * wl_pad,), dtype=torch.float32, device=right.device)
     f32 = dict(dtype=torch.float32, device=right.device)
     m0 = torch.empty((h, w), **f32)
     a0 = torch.empty((h, w), dtype=torch.int32, device=right.device)
@@ -89,22 +82,23 @@ def cost_volume(left, right, block_size: int = 17, min_disparity: int = 0,
                 max_disparity: int = 200):
     """The (D, H, W) float32 Right-SSD cost volume (+inf = invalid) of left
     (H, W_l, 3) and right (H, W, 3) images: the plain twin
-    ``cost_volume_right_ssd`` for CPU tensors, K2 for CUDA tensors."""
+    ``cost_volume_right_ssd`` for CPU tensors (any block size), K2 for CUDA
+    tensors (block sizes up to 17, as K1 and the TPU kernel; ``ValueError``
+    beyond; no caller in the port passes more)."""
     global VOLUME_LAUNCHES
     if left.device.type == "cpu" and right.device.type == "cpu":
         return cost_volume_right_ssd(left, right, block_size, min_disparity,
                                      max_disparity)
     left, right, D = cuda_images(left, right, min_disparity, max_disparity, "K2")
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
-    lib = load_library()
+    lib, hbs, wl_pad, scratch = window_cost_setup(left, right, block_size,
+                                                  min_disparity, D, "K2")
     h, w = right.shape[:2]
     cost = torch.empty((D, h, w), dtype=torch.float32, device=right.device)
     stream = torch.cuda.current_stream(right.device).cuda_stream
     with torch.cuda.device(right.device):
         rc = lib.stpu_cost_volume(
-            left.data_ptr(), right.data_ptr(), cost.data_ptr(),
-            h, w, left.shape[1], (block_size - 1) // 2, min_disparity, D, stream)
+            left.data_ptr(), right.data_ptr(), cost.data_ptr(), scratch.data_ptr(),
+            h, w, left.shape[1], wl_pad, hbs, min_disparity, D, stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc}")
     VOLUME_LAUNCHES += 1
@@ -130,3 +124,22 @@ def cuda_images(left, right, min_disparity: int, max_disparity: int, kernel: str
         raise ValueError(f"empty disparity range [{min_disparity}, {max_disparity})")
     return (left.to(torch.float32).contiguous(),
             right.to(torch.float32).contiguous(), D)
+
+
+def window_cost_setup(left, right, block_size: int, min_disparity: int, D: int,
+                      kernel: str):
+    """The kernel library, hbs, and the scratch of the window-cost routine's
+    layout pass: the left image as float2 + float planes zero-padded to
+    ``wl_pad = max(W_l, W + min_d + D)`` columns (``csrc/window_cost.cuh``).
+    Raises ``ValueError`` for a block size the routine does not take."""
+    from stereo_reconstruction_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    hbs, max_hbs = (block_size - 1) // 2, lib.stpu_matcher_inputs_max_hbs()
+    if not 0 <= hbs <= max_hbs:
+        raise ValueError(f"{kernel} takes block sizes up to {2 * max_hbs + 1}, got "
+                         f"{block_size} (backend='xla' takes any)")
+    h, w = right.shape[:2]
+    wl_pad = max(left.shape[1], w + min_disparity + D)
+    scratch = torch.empty((3 * h * wl_pad,), dtype=torch.float32, device=right.device)
+    return lib, hbs, wl_pad, scratch

@@ -36,7 +36,12 @@ from stereo_reconstruction_tpu_torch.ops.smoothing import (
 from stereo_reconstruction_tpu_torch.pipeline import estimate_pose, run_pair
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from chip_smoke import nonplanar_scene, pose_angles, scan_volume  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    _random_stereo,
+    nonplanar_scene,
+    pose_angles,
+    scan_volume,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -132,11 +137,17 @@ def test_k2_reductions_equal_k1_on_non_integer_pair(cuda, rng, h, w, bs):
         assert g.dtype == wv.dtype and torch.equal(g, wv), name
 
 
-def test_k1_refuses_blocks_above_17(cuda, rng):
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_k1_refuses_blocks_above_17(cuda, rng, kernel):
+    """K1, K2 and K3 share the window-cost routine (hbs <= 8)."""
     left, right = _integer_pair(rng, 21, 40)
-    with pytest.raises(ValueError, match="block sizes up to 17"):
-        ccv.matcher_inputs(torch.from_numpy(left).to(cuda),
-                           torch.from_numpy(right).to(cuda), 19, 0, 8)
+    L, R = torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)
+    call = {"K1": lambda: ccv.matcher_inputs(L, R, 19, 0, 8),
+            "K2": lambda: ccv.cost_volume(L, R, 19, 0, 8),
+            "K3": lambda: cbs.block_search_fused(
+                L, R, MatcherConfig(block_size=19, max_disparity=8))}[kernel]
+    with pytest.raises(ValueError, match=f"{kernel} takes block sizes up to 17"):
+        call()
 
 
 @pytest.mark.parametrize("h,w,d_first,sf,ties", [
@@ -197,6 +208,9 @@ def test_k1b_wrapper_checks_and_counts(cuda):
     (20, 90, 0, 5, 0, 8, 64, 2, "none"),
     (21, 40, 9, 5, 2, 12, 512, 2, "reference"),      # min_d 2, wider left
     (40, 1100, 0, 17, 0, 48, 512, 3, "intended"),    # 3 tiles of 512
+    (20, 90, 0, 5, 0, 8, 2, 3, "intended"),          # tiles narrower than iters
+    (101, 200, 0, 9, 1, 31, 64, 2, "reference"),     # (d): band ends at row H-2
+    (8, 4200, 0, 5, 0, 16, 1024, 2, "reference"),    # wider than 4096
 ])
 def test_k3_bit_equal_to_plain(cuda, rng, h, w, wl_extra, bs, min_d, max_d, tw,
                                iters, mode):
@@ -207,6 +221,32 @@ def test_k3_bit_equal_to_plain(cuda, rng, h, w, wl_extra, bs, min_d, max_d, tw,
     got = cbs.block_search_fused(L, R, cfg, tw, mode)
     want = cbs.block_search_fused_plain(L, R, cfg, tw, mode)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("seed,mode", [(0, "intended"), (1, "intended"), (2, "intended"),
+                                       (0, "reference")])
+def test_k3_nan_rule_at_zero_smooth_factor(cuda, seed, mode):
+    """+inf * 0 is NaN; a NaN wins the minimum, so the column takes -x
+    (the twin equals JAX there: tests/test_torch_fused_search.py)."""
+    left, right = _random_stereo(np.random.default_rng(seed), 20, 40, max_d=8)
+    L, R = torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)
+    cfg = MatcherConfig(block_size=5, max_disparity=30, smooth_factor=0.0,
+                        row_smooth_iters=2)
+    got = cbs.block_search_fused(L, R, cfg, 64, mode)
+    assert torch.equal(got, cbs.block_search_fused_plain(L, R, cfg, 64, mode))
+    if mode == "intended":
+        assert (got[:, 37] == -37).all()
+
+
+def test_k3_is_deterministic_on_non_integer_pair(cuda, rng):
+    left = rng.uniform(0.0, 255.0, (200, 700, 3)).astype(np.float32)
+    right = np.roll(left, -9, axis=1) + rng.normal(0.0, 3.0, left.shape).astype(np.float32)
+    L, R = torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)
+    cfg = MatcherConfig(block_size=17, max_disparity=64)
+    first = cbs.block_search_fused(L, R, cfg, 256)
+    assert torch.equal(first, cbs.block_search_fused(L, R, cfg, 256))
+    # the window sums round apart from the twin's on non-integer inputs
+    assert (first == cbs.block_search_fused_plain(L, R, cfg, 256)).double().mean() >= 0.995
 
 
 def test_k2_and_k3_wrappers_count_each_launch(cuda, rng):

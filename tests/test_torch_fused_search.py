@@ -7,8 +7,11 @@ interpret=True)`` and to the port's wrapper
 ``cuda_block_search.block_search_fused``, which takes the plain twin for
 CPU tensors. On the integer-valued ``_random_stereo`` images every window
 sum is exact, so the disparities must agree bit for bit across tiles,
-sweeps and smoothing modes. K3 itself needs the card
-(tests/test_torch_cuda.py and chip_smoke.py).
+sweeps and smoothing modes, at tiles narrower than the sweep count (where
+a tile's boundary depends on the one before it) and at ``smooth_factor``
+0, where ``+inf * 0`` is NaN and ``jnp.min`` and ``torch.min`` let it win:
+the column takes its sentinel ``-x``. These pin the semantics that K3
+itself is held to on the card (tests/test_torch_cuda.py and chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -36,6 +39,9 @@ CASES = [
     (20, 90, 0, 0, 8, 5, 64, 2, "intended"),
     (20, 90, 0, 0, 8, 5, 64, 3, "none"),
     (21, 40, 9, 2, 12, 5, 128, 2, "reference"),     # min_d 2, wider left
+    # tiles narrower than row_smooth_iters: each boundary chains to the last
+    (20, 90, 0, 0, 8, 5, 2, 3, "intended"),
+    (20, 90, 0, 0, 8, 5, 3, 3, "reference"),
 ]
 
 
@@ -59,6 +65,28 @@ def test_twin_bit_equal_to_jax_pallas_search(rng, h, w, extra, min_d, max_d, bs,
     assert got.dtype == np.float32 and got.shape == (h, w)
     # tolerance: none — exact window sums, the same recurrence
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed,mode", [(0, "intended"), (1, "intended"), (2, "intended"),
+                                       (0, "reference"), (1, "reference")])
+def test_twin_bit_equal_to_jax_at_zero_smooth_factor(seed, mode):
+    """smooth_factor 0: a discounted +inf cost is NaN, and a NaN wins the
+    minimum in both versions, so its column takes the sentinel -x."""
+    left, right = _random_stereo(np.random.default_rng(seed), h=20, w=40, max_d=8)
+    kw = dict(block_size=5, min_disparity=0, max_disparity=30, smooth_factor=0.0,
+              row_smooth_iters=2)
+    want = np.asarray(pallas_block_search_right(
+        jnp.asarray(left), jnp.asarray(right), JaxMatcherConfig(**kw), tile_width=64,
+        interpret=True, smooth_mode=mode))
+    got = cbs.block_search_fused(torch.from_numpy(left), torch.from_numpy(right),
+                                 MatcherConfig(**kw), tile_width=64,
+                                 smooth_mode=mode).numpy()
+    # tolerance: none — exact window sums, the same recurrence
+    np.testing.assert_array_equal(got, want)
+    if mode == "intended":
+        # column 37 has one finite plane (d = 0); a discount of any other
+        # plane makes a NaN, and the NaN rule decides every row there
+        assert (want[:, 37] == -37).all()
 
 
 @pytest.mark.parametrize("h,w,max_d_img,max_d,bs,tw,bound", [
