@@ -56,9 +56,25 @@ code 1, no result line) if anything is off:
    against the true disparity; the 4x4 pose staged and reloaded; the same
    pose on three more runs, whose median stage times are printed; the
    port's CPU ``estimate_pose`` (same draws) within 0.05 deg in rotation
-   and 0.2 deg in translation direction; a profile of the pose stage.
+   and 0.2 deg in translation direction; a profile of the pose stage;
+10. the batched main path, ``run_batch``, B = 4 at 750x900, D=200, block
+   17: ``nonplanar_scene`` at seeds 0-2 and the flat-row pair
+   (``flat_pair``, no keypoints) padded to 750x900. ``pose_ok`` 1, 1, 1, 0;
+   each good pair's bad-2.0 < 20% against its true disparity; int16-exact
+   disparities; >= 99.5% agreement with the same batch on the plain
+   backend (same draws), of each good pair with itself in a batch of one,
+   and of the masked batch with the batch without the degenerate pair;
+   exactly 4 K1 and 4 K1b launches and no K2 or K3 launch, counted by the
+   wrappers and seen by torch.profiler; stage times and pairs/s at B = 1
+   and 4 (median of 3 after a warm-up);
+11. the command line: a MiddEval3-shaped tree of one 750x900 scene
+   (``write_middeval_scene``, PNGs by a stdlib writer) and ``python -m
+   stereo_reconstruction_tpu_torch run``, ``run --batch`` and ``eval`` as
+   subprocesses: ``run``'s staged disparity >= 99.5% equal to an in-process
+   ``run_pair`` of the loaded pair, ``run --batch`` posed, ``eval`` equal
+   to the in-process ``evaldisp`` (1e-5); which PNG readers exist.
 
-Each path (5, 6, 8, 9) runs with every launch count set to 0 just before it
+Each path (5, 6, 8, 9, 10) runs with every launch count set to 0 just before it
 and read just after; the launches made to compare a kernel with its twin
 are not counted. The line before the last is ``{"kernels": [...]}``, each
 kernel with its bound (the larger of its bytes over 3.35 TB/s and its
@@ -68,6 +84,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -354,6 +371,60 @@ def pose_angles(pose, R, T):
     return tuple(float(a) for a in np.degrees(np.arccos(np.clip([cos_r, cos_t], -1, 1))))
 
 
+def write_png(path, img):
+    """A uint8 (H, W) or (H, W, 3) array as an 8-bit grayscale or RGB PNG,
+    with the standard library alone (zlib, struct): PIL may be absent."""
+    import struct
+    import zlib
+
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                             2 if img.ndim == 3 else 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_middeval_scene(root, name, left, right, K, ndisp, split="trainingH",
+                         gt=None, mask=None, gt_left=None, mask_left=None):
+    """One MiddEval3 scenario directory ``<root>/<split>/<name>/``: im0.png,
+    im1.png, calib.txt (cam0 = cam1 = K, baseline 1), and where given
+    disp1GT.pfm, mask1nocc.png, disp0GT.pfm and mask0nocc.png."""
+    from stereo_reconstruction_tpu_torch.io.pfm import write_pfm
+
+    d = os.path.join(root, split, name)
+    os.makedirs(d, exist_ok=True)
+    write_png(os.path.join(d, "im0.png"), left)
+    write_png(os.path.join(d, "im1.png"), right)
+    cam = "[" + "; ".join(" ".join(repr(float(v)) for v in row)
+                          for row in np.asarray(K, np.float64)) + "]"
+    with open(os.path.join(d, "calib.txt"), "w") as f:
+        f.write(f"cam0={cam}\ncam1={cam}\ndoffs=0\nbaseline=1.0\n"
+                f"width={right.shape[1]}\nheight={right.shape[0]}\nndisp={ndisp}\n"
+                f"isint=0\nvmin=0\nvmax={ndisp}\ndyavg=0\ndymax=0\n")
+    for fname, arr in (("disp1GT.pfm", gt), ("disp0GT.pfm", gt_left)):
+        if arr is not None:
+            write_pfm(os.path.join(d, fname), np.asarray(arr, np.float32))
+    for fname, arr in (("mask1nocc.png", mask), ("mask0nocc.png", mask_left)):
+        if arr is not None:
+            write_png(os.path.join(d, fname), arr)
+    return d
+
+
+def flat_pair(h=64, w=96, shift=5, seed=0):
+    """A pair whose rows are all equal (no keypoint passes the Hessian
+    test, so the pose is invalid), the right view shifted by ``shift``."""
+    row = np.random.default_rng(seed).integers(10, 250, (1, w + 14, 3)).astype(np.uint8)
+    return np.repeat(row[:, :w], h, axis=0), np.repeat(row[:, shift:w + shift], h, axis=0)
+
+
 def _pose_profile(estimate, torch):
     """(device kernels launched, device ms, wall ms) of one call, from
     torch.profiler; None for the device numbers if it saw no device work."""
@@ -398,6 +469,33 @@ def _kernel_split(call, torch):
     return split
 
 
+KERNEL_NAMES = {"K1": "matcher_inputs_kernel", "K1b": "row_scan_kernel",
+                "K2": "cost_volume_kernel", "K3": "block_search_rows_kernel"}
+
+
+def _profiled_launches(call, torch):
+    """(launches of each kernel of KERNEL_NAMES, device kernels in all,
+    device ms) of one call, as torch.profiler sees them; None for the
+    launches if it saw no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    seen, kernels, device_us = dict.fromkeys(KERNEL_NAMES, 0), 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kernels += e.count
+            device_us += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+            for k, name in KERNEL_NAMES.items():
+                if name in e.key:
+                    seen[k] += e.count
+    return (seen if kernels else None), kernels, device_us / 1e3
+
+
 def _true_disparity(H_lr, F, h, w):
     """Ground truth for the right image in its original frame: the
     rectified-frame disparity x_l - x_r of each right pixel's true match,
@@ -416,12 +514,165 @@ def _true_disparity(H_lr, F, h, w):
     return gt, np.where(inside.reshape(h, w), 255, 0).astype(np.uint8)
 
 
+def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, w=900):
+    """Phase 10: ``run_batch`` on three posed pairs and one whose pose
+    fails, (h, w), at ``config``; returns the pairs and the K1/K1b launch
+    counts of the checked run."""
+    from stereo_reconstruction_tpu_torch.data.records import StereoPair, pad_to
+    from stereo_reconstruction_tpu_torch.pipeline_batch import batch_uniforms, run_batch
+
+    t_phase = time.perf_counter()
+    pairs = []
+    for seed in range(3):
+        left_np, right_np, K, _, _, F_true, src = nonplanar_scene(
+            np.random.default_rng(seed), h, w)
+        gt, mask = nonplanar_disparity(src, F_true)
+        pairs.append(StereoPair(left_np, right_np, K.astype(np.float32),
+                                K.astype(np.float32), disp_right_gt=gt,
+                                mask_right_nocc=mask, name=f"nonplanar{seed}"))
+    fl, fr = flat_pair()
+    K_flat = np.array([[96.0, 0, 48], [0, 96, 32], [0, 0, 1]], np.float32)
+    pairs.append(pad_to(StereoPair(fl, fr, K_flat, K_flat, name="flat"), h, w))
+    B = len(pairs)
+    u = batch_uniforms(config, B)
+    reset_counts()
+    res = run_batch(pairs, config, uniforms=u, device=dev)
+    if counts() != expected(K1=B, K1b=B):
+        raise AssertionError(f"run_batch launches {counts()}: want {B} K1 and {B} K1b")
+    launches = {"K1": counts()["K1"], "K1b": counts()["K1b"]}
+    padded = (B, h + (-h) % 8, w + (-w) % 128)
+    if res.disparity.shape != padded or not np.isfinite(res.disparity).all():
+        raise AssertionError(f"run_batch: bad disparity {res.disparity.shape}")
+    if res.pose_ok.tolist() != [True, True, True, False]:
+        raise AssertionError(f"run_batch pose_ok {res.pose_ok.tolist()}, want 1, 1, 1, 0")
+    if not (np.array_equal(res.disparity, np.rint(res.disparity))
+            and np.abs(res.disparity).max() < 2**15):
+        raise AssertionError("run_batch disparities are not int16-exact")
+    for i in range(3):
+        m = res.metrics[i]
+        print(f"[batch] pair {i}: evaldisp vs the true disparity: bad-2.0 "
+              f"{m['bad_percent']:.3f}%, invalid {m['invalid_percent']:.3f}%, "
+              f"BA {m['reproj_error_ba']:.4f} px", flush=True)
+        if not m["bad_percent"] < MAX_TOTAL_BAD:
+            raise AssertionError(f"run_batch pair {i}: {m}")
+    reset_counts()
+    plain = run_batch(pairs, config.replace(matcher=dataclasses.replace(config.matcher,
+                                                                        backend="xla")),
+                      uniforms=u, device=dev)
+    if counts() != expected():
+        raise AssertionError(f"plain run_batch launched kernels: {counts()}")
+    agree_plain = [float(np.mean(res.disparity[i] == plain.disparity[i])) for i in range(B)]
+    agree_one = [float(np.mean(res.disparity[i] == run_batch(
+        [pairs[i]], config, uniforms=u[i:i + 1], device=dev).disparity[0]))
+        for i in range(3)]
+    unmasked = run_batch(pairs[:3], config, uniforms=u[:3], device=dev)
+    agree_unmasked = [float(np.mean(res.disparity[i] == unmasked.disparity[i]))
+                      for i in range(3)]
+    print(f"[batch] run_batch B={B} {h}x{w} D={config.matcher.max_disparity}: pose_ok {res.pose_ok.astype(int).tolist()}, "
+          f"{B} K1 and {B} K1b launches, int16-exact; disparity agreement with the "
+          f"plain backend {[round(a, 6) for a in agree_plain]}, each good pair with "
+          f"itself at B=1 {[round(a, 6) for a in agree_one]}, with the batch without "
+          f"the degenerate pair {[round(a, 6) for a in agree_unmasked]}", flush=True)
+    if min(agree_plain + agree_one + agree_unmasked) < 0.995:
+        raise AssertionError("run_batch disparity agreement below 99.5%")
+    seen, n_kernels, device_ms = _profiled_launches(
+        lambda: run_batch(pairs, config, uniforms=u, device=dev), torch)
+    if seen is None:
+        raise AssertionError("the profiler saw no device work in run_batch")
+    if seen != expected(K1=B, K1b=B):
+        raise AssertionError(f"the profiler saw {seen} in run_batch: want {B} K1 and "
+                             f"{B} K1b")
+    print(f"[batch] torch.profiler in run_batch B={B}: {seen}; {n_kernels} device "
+          f"kernels in all, {device_ms:.1f} ms device time", flush=True)
+    for b in (1, B):
+        runs = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            r = run_batch(pairs[:b], config, uniforms=u[:b], device=dev)
+            runs.append(dict(r.timings, wall=time.perf_counter() - t0))
+        runs = runs[1:]                   # the first run is the warm-up
+        med = {k: statistics.median(t[k] for t in runs) * 1e3 for k in runs[0]}
+        print(f"[batch] {smi}: run_batch B={b} stage ms (median of 3 after a warm-up): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+              + f"; {b / (med['wall'] / 1e3):.3f} pairs/s", flush=True)
+    print(f"[batch] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return pairs, launches
+
+
+def cli_phase(torch, dev, config, p0, device_args=()):
+    """Phase 11: the command line on a MiddEval3-shaped tree of ``p0``'s
+    scene, each subcommand a subprocess (``device_args`` are passed to
+    each; the card by default)."""
+    import importlib.util
+
+    from stereo_reconstruction_tpu_torch.data import MiddEval3
+    from stereo_reconstruction_tpu_torch.io import native
+    from stereo_reconstruction_tpu_torch.io.pfm import read_pfm
+    from stereo_reconstruction_tpu_torch.ops.metrics import evaldisp
+    from stereo_reconstruction_tpu_torch.pipeline import run_pair
+
+    print(f"[cli] PNG readers: native decoder "
+          f"{'built' if native.available() else 'unavailable: ' + str(native.build_error())}"
+          f", PIL {'present' if importlib.util.find_spec('PIL') else 'absent'}", flush=True)
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def cli(*args):
+        out = subprocess.run([sys.executable, "-m", "stereo_reconstruction_tpu_torch", *args,
+                              *device_args], cwd=repo, capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"cli {args[0]} exited {out.returncode}:\n{out.stderr}")
+        return [json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out_dir = os.path.join(tmp, "MiddEval3"), os.path.join(tmp, "out")
+        scene = write_middeval_scene(root, "Nonplanar", p0.image_left, p0.image_right,
+                                     p0.intrinsics_left, ndisp=200, gt=p0.disp_right_gt,
+                                     mask=p0.mask_right_nocc)
+        t0 = time.perf_counter()
+        run_line = cli("run", "--data", root, "--scenario", "0", "--out", out_dir)
+        batch_lines = cli("run", "--batch", "--data", root, "--scenario", "0", "0")
+        staged = os.path.join(out_dir, "Nonplanar_disp.pfm")
+        eval_line = cli("eval", "--disp", staged, "--gt", os.path.join(scene, "disp1GT.pfm"),
+                        "--mask", os.path.join(scene, "mask1nocc.png"))
+        cli_s = time.perf_counter() - t0
+        loaded = MiddEval3(root).load_training(0)
+        if not (np.array_equal(loaded.image_left, p0.image_left)
+                and np.array_equal(loaded.mask_right_nocc, p0.mask_right_nocc)):
+            raise AssertionError("the tree does not load back equal")
+        want = run_pair(loaded, config, device=dev)
+        disp = read_pfm(staged)
+        agree = float(np.mean(disp == want.disparity))
+        if len(run_line) != 1 or run_line[0]["metrics"]["pose_ok"] != 1.0 or agree < 0.995:
+            raise AssertionError(f"cli run: {run_line}, agreement {agree} with run_pair")
+        if len(batch_lines) != 2 or any(x["pose_ok"] != 1.0
+                                        or not x["bad_percent"] < MAX_TOTAL_BAD
+                                        for x in batch_lines):
+            raise AssertionError(f"cli run --batch: {batch_lines}")
+        m = {k: float(v) for k, v in evaldisp(
+            torch.from_numpy(disp).to(dev),
+            torch.from_numpy(loaded.disp_right_gt).to(dev),
+            torch.from_numpy(loaded.mask_right_nocc).to(dev), bad_thresh=2.0,
+            max_disp=1e9).items()}
+        if (len(eval_line) != 1 or eval_line[0].keys() != m.keys()
+                or any(abs(eval_line[0][k] - v) > 1e-5 * max(1.0, abs(v))
+                       for k, v in m.items())):
+            raise AssertionError(f"cli eval {eval_line} != in-process evaldisp {m}")
+    print(f"[cli] run, run --batch and eval as subprocesses on a MiddEval3 tree "
+          f"({cli_s:.1f} s): run's staged disparity agrees {agree:.6f} with run_pair of "
+          f"the loaded pair; run --batch pose_ok 1, 1, bad-2.0 "
+          f"{[round(x['bad_percent'], 3) for x in batch_lines]}; eval equals evaldisp "
+          f"(bad-2.0 {eval_line[0]['bad_percent']:.3f}%); phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stereo_reconstruction_tpu_torch.config import MatcherConfig, PipelineConfig
     from stereo_reconstruction_tpu_torch.data.records import StereoPair
@@ -829,6 +1080,16 @@ def main() -> int:
              f"({100 * device_ms / wall_ms:.1f}% busy)" if kernels else
              "device time not measured (the profiler saw no device work)"), flush=True)
 
+    # 10. the batched main path
+    ctx = dict(torch=torch, dev=dev, config=config, smi=smi, counts=counts,
+               reset_counts=reset_counts, expected=expected)
+    pairs, batch_launches = batch_phase(**ctx)
+    launches.update(batch_launches)
+
+    # 11. the command line
+    cli_phase(torch, dev, config, pairs[0])
+
+    print(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     csrc = "stereo_reconstruction_tpu_torch/csrc/"
     kernels = [
         ("K1", "fused matcher inputs (left_layout_kernel + matcher_inputs_kernel)",

@@ -3,10 +3,11 @@
 
 The JAX package stays the reference; this package mirrors its module
 paths so each counterpart is easy to find. Plain tensor code is PyTorch
-on an explicit ``device``; the one Pallas kernel on the shared-pose path
-(the fused matcher, ``ops/pallas_cost_volume.py::_kernel`` in mode
-``"inputs"``) is a CUDA C++ kernel for Hopper (``csrc/cost_volume.cu``,
-wrapper ``ops/cuda_cost_volume.py``).
+on an explicit ``device``; each Pallas kernel of the JAX package, and its
+exact row scan, is a CUDA C++ kernel for Hopper in ``csrc/`` (wrappers in
+``ops/cuda_*.py``). The entry points are ``pipeline.run_pair``,
+``pipeline_batch.run_batch`` and ``python -m stereo_reconstruction_tpu_torch``
+(``cli.py``).
 
 This package imports ``torch`` and never ``jax`` (nor the JAX package,
 whose ``__init__`` imports JAX).

@@ -32,7 +32,8 @@ left layout pass, the two kernels) count as one K3 launch. Its scratch is
 the (D, H, W) float32 volume, D*H*W*4 bytes (1.27 GB at 1128x1408,
 D=200), plus (6, H, W) for the top three, the layout pass's 3*H*W_pad
 floats and 8*W + n_tiles floats for the chain. K3 takes block sizes 3 to
-17, D up to 65535 (16-bit plane indices), any width and any tile width.
+17, D up to 65535 (16-bit plane indices; ``ValueError`` beyond, before any
+launch), any width and any tile width.
 
 The wrapper takes the plain twin only for CPU tensors. A CUDA tensor
 launches the kernel or raises; nothing falls back. ``min_disparity < 0``
@@ -55,6 +56,9 @@ from stereo_reconstruction_tpu_torch.ops.cuda_cost_volume import (
 
 # kernel launches made by ``block_search_fused`` (the plain twin never counts)
 LAUNCHES = 0
+# K3's plane indices are 16-bit, 0xffff marking an empty top-3 slot
+# (``kNoPlane``, csrc/block_search.cuh)
+MAX_PLANES = 0xffff
 
 SMOOTH_SIGN = {"reference": -1, "intended": 1, "none": 0}
 
@@ -135,7 +139,7 @@ def block_search_fused(left, right, config: MatcherConfig = MatcherConfig(),
         return block_search_fused_plain(left, right, config, tile_width, smooth_mode)
     _check(config, smooth_mode)
     left, right, D = cuda_images(left, right, config.min_disparity,
-                                 config.max_disparity, "K3")
+                                 config.max_disparity, "K3", MAX_PLANES)
     h, w = right.shape[:2]
     tw = tile_width_for(w, tile_width)
     if tw < 1:

@@ -21,6 +21,11 @@ kernel. Both take block sizes up to 17 (``hbs <= 8``, as the TPU kernel's
 ``volume_reductions`` of K2's volume equals K1's planes bit for bit on any
 input.
 
+The routine's left layout holds 3·H·WLp floats, ``WLp = max(W_l, W +
+min_d + D)``, indexed in 32 bits: a call with 3·H·WLp at or past 2^31 - 1
+raises ``ValueError`` before any launch (``check_limits``; the library
+refuses it as well).
+
 A wrapper takes the plain twin only for CPU tensors. A CUDA tensor
 launches the kernel or raises; nothing falls back. ``min_disparity < 0``
 raises ``ValueError`` on every device.
@@ -105,9 +110,31 @@ def cost_volume(left, right, block_size: int = 17, min_disparity: int = 0,
     return cost
 
 
-def cuda_images(left, right, min_disparity: int, max_disparity: int, kernel: str):
-    """Check a kernel's image pair and disparity range; return the images
-    as contiguous float32 and the number of planes D."""
+# the largest 3·H·WLp the window-cost routine's 32-bit indices take
+# (``layout_fits``, csrc/window_cost.cuh)
+LAYOUT_LIMIT = 2**31 - 1
+
+
+def check_limits(h: int, w: int, wl: int, min_disparity: int, D: int, kernel: str,
+                 max_planes=None) -> None:
+    """Raise ``ValueError`` naming the limit where a kernel's library would
+    refuse the call: D above ``max_planes`` (K3: 65535) or a left layout of
+    3·H·WLp floats at or past 2^31 - 1."""
+    if max_planes is not None and D > max_planes:
+        raise ValueError(f"{kernel} takes D <= {max_planes} disparity planes, got D = {D} "
+                         f"(backend='xla' takes any)")
+    wl_pad = max(wl, w + min_disparity + D)
+    if 3 * h * wl_pad >= LAYOUT_LIMIT:
+        raise ValueError(f"{kernel} needs 3·H·WLp < 2^31 - 1 (its 32-bit layout indices), "
+                         f"got 3·{h}·{wl_pad} = {3 * h * wl_pad}, WLp = max(W_l, W + min_d "
+                         f"+ D) (backend='xla' takes any)")
+
+
+def cuda_images(left, right, min_disparity: int, max_disparity: int, kernel: str,
+                max_planes=None):
+    """Check a kernel's image pair, disparity range and limits
+    (``check_limits``); return the images as contiguous float32 and the
+    number of planes D."""
     if left.device != right.device or left.device.type != "cuda":
         raise ValueError(
             f"{kernel} needs both images on one CUDA device, got {left.device} "
@@ -122,6 +149,8 @@ def cuda_images(left, right, min_disparity: int, max_disparity: int, kernel: str
     D = max_disparity - min_disparity
     if D <= 0:
         raise ValueError(f"empty disparity range [{min_disparity}, {max_disparity})")
+    check_limits(right.shape[0], right.shape[1], left.shape[1], min_disparity, D, kernel,
+                 max_planes)
     return (left.to(torch.float32).contiguous(),
             right.to(torch.float32).contiguous(), D)
 

@@ -64,14 +64,42 @@ def _taps(sigma: float) -> np.ndarray:
 
 def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     """Separable Gaussian blur of (..., H, W) float32 with reflect-101
-    borders: rows first, then columns."""
-    k = torch.from_numpy(_taps(float(sigma))).to(img.device)
-    r = (k.shape[0] - 1) // 2
+    borders: rows first, then columns.
+
+    On the CPU each output is a matmul of its window with the taps. On the
+    card it adds its 2r+1 products in tap order, one elementwise pass per
+    tap: cuBLAS picks its matmul kernel by the problem's size, so there an
+    image's blur, and its keypoints, moved with the number of images in the
+    batch, enough to change a pair's RANSAC winner with its batch-mates. The CPU's matmul does not
+    depend on the batch and keeps the rounding the tests against the JAX
+    package were measured with."""
+    if img.device.type != "cpu":
+        return blur_in_tap_order(img, sigma)
     shape = img.shape
+    k = torch.from_numpy(_taps(float(sigma)))
+    r = (k.shape[0] - 1) // 2
     x = img.reshape(-1, 1, *shape[-2:])
     x = F.pad(x, (0, 0, r, r), mode="reflect").unfold(2, 2 * r + 1, 1) @ k
     x = F.pad(x, (r, r, 0, 0), mode="reflect").unfold(3, 2 * r + 1, 1) @ k
     return x.reshape(shape)
+
+
+def blur_in_tap_order(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """``gaussian_blur`` on the card: every output the sum of its 2r+1
+    products, added in tap order by one elementwise pass per tap."""
+    taps = [float(t) for t in _taps(float(sigma))]
+    r = (len(taps) - 1) // 2
+    shape = img.shape
+    h, w = shape[-2:]
+    x = F.pad(img.reshape(-1, 1, h, w), (0, 0, r, r), mode="reflect")
+    acc = x[..., :h, :] * taps[0]
+    for i in range(1, 2 * r + 1):
+        acc = acc + x[..., i:i + h, :] * taps[i]
+    x = F.pad(acc, (r, r, 0, 0), mode="reflect")
+    acc = x[..., :w] * taps[0]
+    for i in range(1, 2 * r + 1):
+        acc = acc + x[..., i:i + w] * taps[i]
+    return acc.reshape(shape)
 
 
 def _build_pyramid(gray: torch.Tensor, config: FrontendConfig):

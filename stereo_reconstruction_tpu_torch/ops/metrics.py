@@ -30,7 +30,9 @@ def evaldisp(
 
     evaluated = torch.isfinite(gt) & (mask == 255)
     valid = disp != 0
-    d = disp.clamp(0.0, max_disp)
+    # max_disp may be a 0-d tensor (one per pair under torch.func.vmap)
+    d = torch.minimum(disp.clamp(min=0.0),
+                      torch.as_tensor(max_disp, dtype=torch.float32, device=disp.device))
     if round_disp:
         d = torch.round(d)
     d = torch.where(valid, d, disp)

@@ -77,6 +77,34 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def pose_from_keypoints(kp_left: Keypoints, kp_right: Keypoints, K_left: torch.Tensor,
+                        K_right: torch.Tensor, uniforms: torch.Tensor,
+                        config: PipelineConfig) -> PoseEstimate:
+    """Match -> valid matches to the front -> RANSAC eight-point -> filter
+    -> BA for one pair's keypoints, on their device with no host sync and
+    no data-dependent Python branch, so ``torch.func.vmap`` batches it
+    (``pipeline_batch.pose_batch``)."""
+    ml, mr, valid = matches_to_homogeneous(
+        match_descriptors(kp_left, kp_right, config.frontend))
+    # valid matches to the front, in their original order
+    order = torch.argsort((~valid).to(torch.int8), stable=True)
+    return estimate_pose_from_matches(
+        ml[:, order], mr[:, order], K_left, K_right, config,
+        num_matches_valid=torch.sum(valid), uniforms=uniforms)
+
+
+def pose_device(images: torch.Tensor, K_left: torch.Tensor, K_right: torch.Tensor,
+                uniforms: torch.Tensor, config: PipelineConfig) -> PoseEstimate:
+    """The sparse pose stage of one pair on device tensors (JAX
+    ``pipeline._pose_device``): ``images`` (2, H, W, 3) left and right,
+    the (3, 3) intrinsics and the (num_hypotheses, max_keypoints) RANSAC
+    draws. SIFT x2 runs as one batch of two images."""
+    kp = detect_and_describe_batch(images, config.frontend)
+    return pose_from_keypoints(Keypoints(*(x[0] for x in kp)),
+                               Keypoints(*(x[1] for x in kp)),
+                               K_left, K_right, uniforms, config)
+
+
 def estimate_pose(pair: StereoPair, config: PipelineConfig = PipelineConfig(),
                   device="cuda", uniforms: Optional[torch.Tensor] = None) -> PoseEstimate:
     """SIFT x2 -> match -> RANSAC eight-point -> filter -> BA on ``device``
@@ -88,24 +116,16 @@ def estimate_pose(pair: StereoPair, config: PipelineConfig = PipelineConfig(),
     device = _device(device)
     images = torch.stack([torch.as_tensor(np.asarray(pair.image_left)),
                           torch.as_tensor(np.asarray(pair.image_right))]).to(device)
-    kp = detect_and_describe_batch(images, config.frontend)
-    kp_l = Keypoints(*(x[0] for x in kp))
-    kp_r = Keypoints(*(x[1] for x in kp))
-    ml, mr, valid = matches_to_homogeneous(match_descriptors(kp_l, kp_r, config.frontend))
-
-    # valid matches to the front, in their original order
-    order = torch.argsort((~valid).to(torch.int8), stable=True)
-    ml, mr = ml[:, order], mr[:, order]
     if uniforms is None:
-        uniforms = draw_uniforms(config.ransac, ml.shape[1],
+        uniforms = draw_uniforms(config.ransac, config.frontend.max_keypoints,
                                  torch.Generator().manual_seed(config.seed))
 
     def intrinsics(K):
         return torch.as_tensor(np.asarray(K), dtype=torch.float32, device=device)
 
-    return estimate_pose_from_matches(
-        ml, mr, intrinsics(pair.intrinsics_left), intrinsics(pair.intrinsics_right),
-        config, num_matches_valid=torch.sum(valid), uniforms=uniforms)
+    return pose_device(images, intrinsics(pair.intrinsics_left),
+                       intrinsics(pair.intrinsics_right),
+                       torch.as_tensor(uniforms, dtype=torch.float32).to(device), config)
 
 
 def compute_disparity(left, right, config: PipelineConfig) -> torch.Tensor:

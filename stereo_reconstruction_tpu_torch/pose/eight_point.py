@@ -33,12 +33,11 @@ class EightPointResult(NamedTuple):
 
 
 def pose_matrix(R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
-    """(..., 4, 4) [[R, T], [0, 1]]."""
-    pose = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
-    pose[..., :3, :3] = R
-    pose[..., :3, 3] = T
-    pose[..., 3, 3] = 1.0
-    return pose
+    """(..., 4, 4) [[R, T], [0, 1]], built out of place so that
+    ``torch.func.vmap`` batches it."""
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    top = torch.cat([R, T[..., :, None]], dim=-1)
+    return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
 
 
 def eight_point(

@@ -61,13 +61,14 @@ def remove_disparity_outliers(
 
 
 def disparity_to_depth(
-    disparity: torch.Tensor, focal_length: float, baseline: float = 1.0
+    disparity: torch.Tensor, focal_length, baseline: float = 1.0
 ) -> torch.Tensor:
     """depth = f*b/d in float32; zero disparity -> -inf
-    (reconstruction.cpp:30-43)."""
+    (reconstruction.cpp:30-43). ``focal_length`` is a number or a tensor
+    that broadcasts against ``disparity`` (one focal per pair of a batch)."""
     disparity = disparity.to(torch.float32)
     f32 = dict(dtype=torch.float32, device=disparity.device)
-    fb = torch.tensor(focal_length, **f32) * torch.tensor(baseline, **f32)
+    fb = torch.as_tensor(focal_length, **f32) * torch.as_tensor(baseline, **f32)
     zero = disparity == 0
     depth = fb / torch.where(zero, torch.ones_like(disparity), disparity)
     return torch.where(zero, torch.tensor(float("-inf"), **f32), depth)

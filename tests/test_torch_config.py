@@ -67,28 +67,63 @@ def test_tf32_pinned_off():
 
 POSE_MODULES = ("ops.features", "ops.matching", "ops.geometry", "ops.small_linalg",
                 "pose", "pose.eight_point", "pose.ransac", "pose.ba", "pose.pipeline")
+ENTRY_MODULES = ("cli", "__main__", "pipeline_batch", "io.calib", "io.native", "io.image",
+                 "data.middeval3", "data.hitnet", "utils", "utils.profiling",
+                 "utils.batch", "utils.staging")
+
+
+def _no_jax_env():
+    return {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the pose stage's included, imports without
-    pulling in jax or the JAX package (whose __init__ imports jax)."""
+    """Every module of the port, the pose stage's and the entry points'
+    included, imports without pulling in jax or the JAX package (whose
+    __init__ imports jax). ``__main__`` runs the CLI when imported, so it
+    is checked by ``test_module_entry_point_help``."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import stereo_reconstruction_tpu_torch as p\n"
         "names = [m.name[len(p.__name__) + 1:]\n"
         "         for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        f"missing = set({POSE_MODULES!r}) - set(names)\n"
+        f"missing = set({POSE_MODULES + ENTRY_MODULES!r}) - set(names)\n"
         "assert not missing, missing\n"
         "for name in names:\n"
-        "    importlib.import_module(p.__name__ + '.' + name)\n"
+        "    if name != '__main__':\n"
+        "        importlib.import_module(p.__name__ + '.' + name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'stereo_reconstruction_tpu']\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_no_jax_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("argv", [["--help"], ["run", "--help"], ["eval", "--help"]])
+def test_module_entry_point_help(argv):
+    """``python -m stereo_reconstruction_tpu_torch`` parses its arguments
+    (``--device`` defaults to cuda) and imports no JAX on the way."""
+    code = (
+        "import sys, runpy\n"
+        f"sys.argv = ['stereo_reconstruction_tpu_torch'] + {argv!r}\n"
+        "try:\n"
+        "    runpy.run_module('stereo_reconstruction_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m.split('.')[0] == 'stereo_reconstruction_tpu']\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_no_jax_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage: stereo_reconstruction_tpu_torch" in out.stdout
+    if argv[0] != "--help":
+        assert "--device" in out.stdout and "default cuda" in out.stdout
+    else:
+        for cmd in ("run", "eval", "reconstruct", "rectify", "bench"):
+            assert cmd in out.stdout

@@ -1,5 +1,5 @@
-"""K1, K1b, K2, K3, the matcher and the pose stage on the card (marker
-``cuda``; skipped without a GPU).
+"""K1, K1b, K2, K3, the matcher, the pose stage and ``run_batch`` on the
+card (marker ``cuda``; skipped without a GPU).
 
 A CUDA kernel has no CPU mode, so these run only on a machine with an
 NVIDIA GPU and ``nvcc``:
@@ -12,7 +12,9 @@ planes, K2's volume and K3's disparity must equal the plain twins' bit for
 bit. K1 and K2 add in the same order, so K2's reductions equal K1's planes
 on any input. K1b (the exact row scan) equals its plain twin bit for bit
 on any planes. The pose stage is plain PyTorch; on the card it must give
-the port's CPU pose for the same RANSAC draws.
+the port's CPU pose for the same RANSAC draws. ``run_batch`` launches one
+K1 and one K1b per pair, agrees >= 99.5% with its plain backend, and masks
+a pair whose pose fails without moving its neighbours past 0.5%.
 """
 
 import os
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 from stereo_reconstruction_tpu_torch.config import MatcherConfig, PipelineConfig
-from stereo_reconstruction_tpu_torch.data.records import StereoPair
+from stereo_reconstruction_tpu_torch.data.records import StereoPair, pad_to
 from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
 from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
 from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
@@ -34,10 +36,13 @@ from stereo_reconstruction_tpu_torch.ops.smoothing import (
     volume_reductions,
 )
 from stereo_reconstruction_tpu_torch.pipeline import estimate_pose, run_pair
+from stereo_reconstruction_tpu_torch.pipeline_batch import batch_uniforms, run_batch, run_batches
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from chip_smoke import (  # noqa: E402
     _random_stereo,
+    flat_pair,
+    nonplanar_disparity,
     nonplanar_scene,
     pose_angles,
     scan_volume,
@@ -314,3 +319,82 @@ def test_run_pair_with_F_launches_k1_and_k1b_once(cuda):
     # the rectified canvas is not integer-valued, so the two backends' window
     # sums may round apart on near-tie pixels (chip_smoke holds 99.5%)
     assert np.mean(res.disparity == plain.disparity) >= 0.995
+
+
+BATCH_CONFIG = PipelineConfig(matcher=MatcherConfig(block_size=7, max_disparity=80))
+
+
+def _batch_pairs():
+    """Two posed 240x320 non-planar scenes (seeds 0, 1) and the flat-row pair,
+    whose pose fails, padded to their shape."""
+    pairs = []
+    for seed in (0, 1):
+        left, right, K, _, _, F, src = nonplanar_scene(np.random.default_rng(seed), 240, 320)
+        gt, mask = nonplanar_disparity(src, F)
+        K = K.astype(np.float32)
+        pairs.append(StereoPair(left, right, K, K, disp_right_gt=gt, mask_right_nocc=mask,
+                                name=f"s{seed}"))
+    fl, fr = flat_pair()
+    Kf = np.array([[96.0, 0, 48], [0, 96, 32], [0, 0, 1]], np.float32)
+    return pairs + [pad_to(StereoPair(fl, fr, Kf, Kf, name="flat"), 240, 320)]
+
+
+def test_run_batch_kernel_vs_plain_backend(cuda):
+    pairs = _batch_pairs()
+    u = batch_uniforms(BATCH_CONFIG, 3)
+    before = _launches()
+    res = run_batch(pairs, BATCH_CONFIG, uniforms=u, device=cuda)
+    # one K1 and one K1b per pair, nothing else
+    assert _launches() == (before[0] + 3, before[1] + 3, before[2], before[3])
+    assert res.pose_ok.tolist() == [True, True, False]
+    plain_cfg = BATCH_CONFIG.replace(matcher=MatcherConfig(block_size=7, max_disparity=80,
+                                                           backend="xla"))
+    plain = run_batch(pairs, plain_cfg, uniforms=u, device=cuda)
+    assert _launches() == (before[0] + 3, before[1] + 3, before[2], before[3])
+    assert plain.pose_ok.tolist() == res.pose_ok.tolist()
+    for i in range(3):
+        # the rectified canvas is not integer-valued: near-tie pixels may flip
+        assert np.mean(res.disparity[i] == plain.disparity[i]) >= 0.995, i
+    np.testing.assert_array_equal(res.disparity, np.rint(res.disparity))
+
+
+def test_run_batch_masks_the_failed_pair_on_card(cuda):
+    pairs = _batch_pairs()
+    u = batch_uniforms(BATCH_CONFIG, 3)
+    masked = run_batch(pairs, BATCH_CONFIG, uniforms=u, device=cuda)
+    alone = run_batch(pairs[:2], BATCH_CONFIG, uniforms=u[:2], device=cuda)
+    assert masked.pose_ok.tolist() == [True, True, False]
+    assert alone.pose_ok.tolist() == [True, True]
+    for i in range(2):
+        assert np.mean(masked.disparity[i] == alone.disparity[i]) >= 0.995, i
+    # the failed pair is matched raw (identity homographies): the shift of 5
+    assert np.mean(masked.disparity[2][:64, :80] == 5) > 0.9
+
+
+def test_run_batch_pose_does_not_depend_on_batch_mates(cuda):
+    """A pair's keypoints, and so its RANSAC winner, are the same in a batch
+    of 1 and of 3 (the detector's blur adds in tap order on the card)."""
+    pairs = _batch_pairs()
+    u = batch_uniforms(BATCH_CONFIG, 3)
+    three = run_batch(pairs, BATCH_CONFIG, uniforms=u, device=cuda)
+    for i in range(2):
+        one = run_batch(pairs[i:i + 1], BATCH_CONFIG, uniforms=u[i:i + 1], device=cuda)
+        assert int(one.pose.num_inliers[0]) == int(three.pose.num_inliers[i])
+        np.testing.assert_allclose(one.pose.pose[0, :3, :3].cpu().numpy(),
+                                   three.pose.pose[i, :3, :3].cpu().numpy(), atol=1e-4)
+        # BA's batched solves still round apart with B, and at 240x320 a
+        # small change of F flips ~1% of pair 1's disparities (0.98977 on
+        # the H100); at 750x900 chip_smoke holds 99.5%
+        assert np.mean(one.disparity[0] == three.disparity[i]) >= 0.98, i
+
+
+def test_run_batches_on_card_equals_run_batch(cuda):
+    pairs = _batch_pairs()
+    groups = [pairs[:1], pairs[1:]]
+    piped = run_batches(groups, BATCH_CONFIG, fetch_depth=False, device=cuda)
+    for i, group in enumerate(groups):
+        seq = run_batch(group, BATCH_CONFIG, uniforms=batch_uniforms(BATCH_CONFIG, len(group), i),
+                        device=cuda)
+        np.testing.assert_array_equal(piped[i].disparity, seq.disparity)
+        assert piped[i].pose_ok.tolist() == seq.pose_ok.tolist()
+        assert piped[i].depth is None

@@ -53,6 +53,18 @@ def test_rgb_to_gray_and_blur(rng):
                                    rtol=1e-5, atol=1e-3)
 
 
+def test_card_blur_matches_jax_and_ignores_the_batch(rng):
+    """The card's blur (``blur_in_tap_order``, run here on the CPU) within
+    the CPU blur's tolerance of JAX's, and bit-equal for an image alone and
+    inside a batch of three."""
+    imgs = torch.from_numpy(rng.uniform(0, 255, (3, 40, 52)).astype(np.float32))
+    for sigma in (1.6, 1.2262, 3.0898):
+        got = tf.blur_in_tap_order(imgs, sigma)
+        want = jf.gaussian_blur(jnp.asarray(imgs[1].numpy()), sigma)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want), rtol=1e-5, atol=1e-3)
+        assert torch.equal(tf.blur_in_tap_order(imgs[1], sigma), got[1])
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_detect_and_describe_matches_jax(rng, name):
     img = _textured_image(rng)

@@ -169,3 +169,26 @@ def test_row_scan_exact_vs_sequential_recurrence(rng, d_first):
                                         torch.from_numpy(black),
                                         smooth_factor=0.9, d_first=d_first)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("h,w,wl,min_d,D,max_planes,match", [
+    # K3's 16-bit plane indices: D = 65535 passes, 65536 names the limit
+    (4, 8, 8, 0, 65535, 0xFFFF, None),
+    (4, 8, 8, 0, 65536, 0xFFFF, "K3 takes D <= 65535"),
+    # K1 and K2 have no plane limit of their own
+    (4, 8, 8, 0, 70000, None, None),
+    # the left layout: 3·H·WLp must stay below 2^31 - 1
+    (1, 715827882, 715827882, 0, 0, None, None),
+    (1, 715827883, 715827883, 0, 1, None, r"3·H·WLp < 2\^31 - 1"),
+    (1000, 715000, 715000, 828, 10, None, r"3·1000·715838 = 2147514000"),
+])
+def test_kernel_limits_raise_value_error_before_launch(h, w, wl, min_d, D, max_planes,
+                                                       match):
+    """The wrappers' limits as ``ValueError`` naming the limit (the CUDA
+    library would return cudaErrorInvalidValue), checked on the CPU."""
+    kernel = "K3" if max_planes else "K1"
+    if match is None:
+        ccv.check_limits(h, w, wl, min_d, D, kernel, max_planes)
+    else:
+        with pytest.raises(ValueError, match=match):
+            ccv.check_limits(h, w, wl, min_d, D, kernel, max_planes)
