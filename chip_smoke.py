@@ -72,11 +72,26 @@ code 1, no result line) if anything is off:
    stereo_reconstruction_tpu_torch run``, ``run --batch`` and ``eval`` as
    subprocesses: ``run``'s staged disparity >= 99.5% equal to an in-process
    ``run_pair`` of the loaded pair, ``run --batch`` posed, ``eval`` equal
-   to the in-process ``evaldisp`` (1e-5); which PNG readers exist.
+   to the in-process ``evaldisp`` (1e-5); which PNG readers exist;
+12. the dense variants on the slice's rectified 1128x1408 canvas, D=200,
+   block 17: SAD, NCC and the variable block (sizes 17, 21, 25) through
+   ``block_search_right``, each with exactly one K1b launch and K1b equal
+   to the plain scan on the same volume's planes; ``run_pair(fixed_F=F)``
+   with SAD and NCC (evaldisp bad-2.0 < 20% against the true disparity)
+   and ``run_batch`` with NCC; ``block_search_left`` and ``linear_search``
+   (no kernel) >= 99.5% equal to the port on the CPU on a 240x320 crop;
+   each route's ms, and the fixpoint smoother's ms at convergence tests
+   every 1, 2, 4, 8 and 16 sweeps and at 2 and 12 fixed sweeps
+   (interleaved rounds);
+13. the uncalibrated path: ``run_uncalibrated`` on ``nonplanar_scene``
+   seed 0 at 750x900 (D=200) with orb, brisk and dog: >= 30 inliers,
+   epipolar alignment <= 2.0 px, F re-estimated, the three PNGs; and
+   ``python -m stereo_reconstruction_tpu_torch rectify`` as a subprocess
+   on a MiddEval3 tree of the scene, with the in-process orb run's inliers.
 
-Each path (5, 6, 8, 9, 10) runs with every launch count set to 0 just before it
-and read just after; the launches made to compare a kernel with its twin
-are not counted. The line before the last is ``{"kernels": [...]}``, each
+Each path (5, 6, 8, 9, 10, 12, 13) runs with every launch count set to 0 just
+before it and read just after; the launches made to compare a kernel with
+its twin are not counted. The line before the last is ``{"kernels": [...]}``, each
 kernel with its bound (the larger of its bytes over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s, counted for this run's inputs); the
 last line is ``{"ok": true, "device": {...}}``.
@@ -102,6 +117,8 @@ CALLS = 10
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+# interleaved rounds of the fixpoint smoother's timing in [variants]
+SMOOTHER_ROUNDS = 5
 # bound on evaldisp's bad-2.0 + invalid share against the synthetic scene's
 # true disparity (a 180x150 cut of the scene on the CPU gives 7.9%)
 MAX_TOTAL_BAD = 20.0
@@ -666,6 +683,218 @@ def cli_phase(torch, dev, config, p0, device_args=()):
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def _wall_ms(fn, torch, repeats=3):
+    """Median host-clock ms of ``repeats`` calls that end in a synchronize,
+    after a warm-up call; returns (ms, the warm-up call's result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def variants_phase(torch, dev, smi, rect, pair, F, batch_pair, counts, reset_counts,
+                   expected):
+    """Phase 12: the dense variants on the slice's rectified canvas
+    ``rect`` (of ``pair``, with fundamental matrix ``F``)."""
+    from stereo_reconstruction_tpu_torch.config import MatcherConfig, PipelineConfig
+    from stereo_reconstruction_tpu_torch.ops import block_search as bs
+    from stereo_reconstruction_tpu_torch.ops import cost_volume as cv
+    from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
+    from stereo_reconstruction_tpu_torch.ops import smoothing
+    from stereo_reconstruction_tpu_torch.ops.linear_search import (
+        cost_volume_linear,
+        linear_search,
+    )
+    from stereo_reconstruction_tpu_torch.pipeline import run_pair
+    from stereo_reconstruction_tpu_torch.pipeline_batch import batch_uniforms, run_batch
+
+    t_phase = time.perf_counter()
+    L, R = rect.left, rect.right
+    black = cv.black_pixel_mask(R)
+    volumes = {
+        "sad": (dict(cost="sad"), lambda: cv.cost_volume_right_sad(L, R, 17, 0, 200)),
+        "ncc": (dict(cost="ncc"), lambda: cv.cost_volume_right_ncc(L, R, 17, 0, 200)),
+        "var_block": (dict(var_block=True),
+                      lambda: bs._varblock_cost(L, R, MatcherConfig(var_block=True))),
+    }
+    for name, (kw, volume) in volumes.items():
+        cfg = MatcherConfig(**kw)
+        reset_counts()
+        disp = bs.block_search_right(L, R, cfg)
+        torch.cuda.synchronize()
+        if counts() != expected(K1b=1):
+            raise AssertionError(f"[variants] {name}: launches {counts()}, want one K1b")
+        if disp.shape != tuple(rect.canvas) or not torch.isfinite(disp).all():
+            raise AssertionError(f"[variants] {name}: bad disparity {tuple(disp.shape)}")
+        planes = smoothing.volume_reductions(volume(), 0)
+        scan = dict(smooth_factor=0.9, d_first=0, n_planes=200)
+        got = crs.row_scan(*planes, black, **scan)
+        plain = smoothing.smoothed_argmin_from_inputs(*planes, black, **scan)
+        agree = float((got == plain).double().mean())
+        if not (torch.equal(got, plain) and torch.equal(got, disp)):
+            raise AssertionError(f"[variants] {name}: K1b vs the plain scan {agree:.6f}")
+        del planes
+        route_ms, _ = _wall_ms(lambda: bs.block_search_right(L, R, cfg), torch)
+        print(f"[variants] {name} {tuple(rect.canvas)} D=200: 1 K1b launch; K1b agrees "
+              f"{agree:.6f} with the plain scan on the volume's planes; "
+              f"block_search_right {route_ms:.2f} ms (median of 3, {smi})", flush=True)
+
+    base = PipelineConfig()
+    for cost in ("sad", "ncc"):
+        config = base.replace(matcher=MatcherConfig(cost=cost))
+        reset_counts()
+        res = run_pair(pair, config, fixed_F=F, device=dev)
+        if counts() != expected(K1b=1):
+            raise AssertionError(f"[variants] run_pair {cost}: launches {counts()}")
+        m = res.metrics
+        print(f"[variants] run_pair(fixed_F=F) {cost} 750x900: evaldisp vs the true "
+              f"disparity bad-2.0 {m['bad_percent']:.3f}%, invalid "
+              f"{m['invalid_percent']:.3f}%, stage ms " + ", ".join(
+                  f"{k} {v * 1e3:.2f}" for k, v in res.timings.items()), flush=True)
+        if not m["bad_percent"] < MAX_TOTAL_BAD:
+            raise AssertionError(f"[variants] run_pair {cost}: {m}")
+    config = base.replace(matcher=MatcherConfig(cost="ncc"))
+    reset_counts()
+    res = run_batch([batch_pair], config, uniforms=batch_uniforms(config, 1), device=dev)
+    if counts() != expected(K1b=1) or not res.pose_ok[0]:
+        raise AssertionError(f"[variants] run_batch ncc: launches {counts()}, "
+                             f"{res.metrics}")
+    if not res.metrics[0]["bad_percent"] < MAX_TOTAL_BAD:
+        raise AssertionError(f"[variants] run_batch ncc: {res.metrics}")
+    print(f"[variants] run_batch ncc B=1: pose_ok, 1 K1b launch, bad-2.0 "
+          f"{res.metrics[0]['bad_percent']:.3f}%", flush=True)
+
+    # the Left variant and the linear search: the fixpoint smoother, no kernel
+    y0, x0 = (rect.canvas[0] - 240) // 2, (rect.canvas[1] - 320) // 2
+    crop = (slice(y0, y0 + 240), slice(x0, x0 + 320))
+    cfg = MatcherConfig()
+    for name, fn in (("block_search_left", lambda l, r: bs.block_search_left(l, r, cfg)),
+                     ("linear_search", lambda l, r: linear_search(l, r))):
+        reset_counts()
+        got = fn(L[crop].contiguous(), R[crop].contiguous())
+        if counts() != expected():
+            raise AssertionError(f"[variants] {name}: launches {counts()}")
+        want = fn(L[crop].cpu(), R[crop].cpu())
+        agree = float((got.cpu() == want).double().mean())
+        route_ms, disp = _wall_ms(lambda: fn(L, R), torch)
+        if disp.shape != tuple(rect.canvas) or not torch.isfinite(disp).all():
+            raise AssertionError(f"[variants] {name}: bad disparity {tuple(disp.shape)}")
+        print(f"[variants] {name}: {agree:.6f} equal to the port on the CPU on a "
+              f"240x320 crop; {tuple(rect.canvas)} D=200 {route_ms:.2f} ms (median of 3, "
+              f"{smi})", flush=True)
+        if agree < 0.995:
+            raise AssertionError(f"[variants] {name}: CPU agreement {agree:.4%} < 99.5%")
+
+    # the fixpoint smoother alone, by convergence-test interval k, and at 2
+    # and 12 fixed sweeps (the cost of a sweep a row); the host-driven loop
+    # is noisy, so the calls run in interleaved rounds, each round in
+    # another order, and each setting reports its median
+    for name, make_volume, dvals, kw in (
+            ("left", lambda: cv.cost_volume_left_ssd(L, R, 17, 200),
+             torch.arange(1, 201, device=dev),
+             dict(mode="intended", variant="left", black=cv.black_pixel_mask(L))),
+            ("linear", lambda: cost_volume_linear(L, R, 200), torch.arange(200, device=dev),
+             dict(mode="reference", variant="right", black=(L == 0).all(dim=-1)))):
+        vol_ms, volume = _wall_ms(make_volume, torch)
+        settings = [dict(iters=None, check_every=k) for k in (1, 2, 4, 8, 16)]
+        settings += [dict(iters=2), dict(iters=12)]
+        ref = smoothing.smoothed_argmin(volume, dvals, kw["black"], mode=kw["mode"],
+                                        variant=kw["variant"], iters=None)
+        samples = [[] for _ in settings]
+        for r in range(SMOOTHER_ROUNDS):
+            for i in (list(range(len(settings))) if r % 2 == 0
+                      else list(reversed(range(len(settings))))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = smoothing.smoothed_argmin(volume, dvals, kw["black"], mode=kw["mode"],
+                                                variant=kw["variant"], **settings[i])
+                torch.cuda.synchronize()
+                samples[i].append((time.perf_counter() - t0) * 1e3)
+                if settings[i]["iters"] is None and not torch.equal(out, ref):
+                    raise AssertionError(f"[variants] smoother ({name}) differs at "
+                                         f"{settings[i]}")
+        med = [statistics.median(x) for x in samples]
+        spread = [max(x) - min(x) for x in samples]
+        sweep_us = (med[6] - med[5]) * 1e3 / 10 / rect.canvas[0]
+        print(f"[variants] fixpoint smoother on the {name} volume ({tuple(rect.canvas)}, "
+              f"D=200; the volume {vol_ms:.2f} ms), ms by convergence-test interval "
+              f"(median of {SMOOTHER_ROUNDS} interleaved rounds, max - min in brackets, "
+              f"equal outputs): " + ", ".join(
+                  f"k={st['check_every']} {m:.1f} ({d:.1f})"
+                  for st, m, d in zip(settings[:5], med, spread))
+              + f"; default k={smoothing.CHECK_EVERY}; 2 sweeps a row {med[5]:.1f} ms, 12 "
+              f"sweeps {med[6]:.1f} ms: {sweep_us:.1f} us a sweep a row, so ~"
+              f"{2 + (med[0] - med[5]) * 1e3 / rect.canvas[0] / sweep_us:.1f} sweeps a "
+              f"row at the fixpoint (k=1, syncs counted as sweeps)", flush=True)
+        del volume
+    print(f"[variants] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def uncalibrated_phase(torch, dev, smi, counts, reset_counts, expected, h=750, w=900,
+                       device_args=()):
+    """Phase 13: ``run_uncalibrated`` with every detector, and the
+    ``rectify`` subcommand as a subprocess (``device_args`` passed to it;
+    the card by default)."""
+    from stereo_reconstruction_tpu_torch.config import PipelineConfig
+    from stereo_reconstruction_tpu_torch.data import MiddEval3
+    from stereo_reconstruction_tpu_torch.pipeline_uncalibrated import run_uncalibrated
+
+    t_phase = time.perf_counter()
+    left, right, K, *_ = nonplanar_scene(np.random.default_rng(SEED), h, w)
+    config = PipelineConfig()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for detector in ("orb", "brisk", "dog"):
+            out = os.path.join(tmp, detector)
+            reset_counts()
+            t0 = time.perf_counter()
+            res = run_uncalibrated(left, right, config, detector=detector, output_dir=out,
+                                   device=dev)
+            wall = time.perf_counter() - t0
+            if counts() != expected():
+                raise AssertionError(f"[uncalibrated] {detector}: launches {counts()}")
+            pngs = all(os.path.exists(os.path.join(out, n)) for n in (
+                "rectified_left.png", "rectified_right.png", "disparity_linear.png"))
+            print(f"[uncalibrated] {detector} {h}x{w}: {res.num_inliers} inliers, epipolar "
+                  f"alignment {res.epipolar_alignment_px:.4f} px, F_rectified "
+                  f"{res.F_rectified is not None}, PNGs {pngs}, disparity "
+                  f"{res.disparity.shape}; {wall * 1e3:.1f} ms with the PNGs ({smi})",
+                  flush=True)
+            if not (res.num_inliers >= 30 and res.epipolar_alignment_px <= 2.0
+                    and res.F_rectified is not None and pngs
+                    and np.isfinite(res.disparity).all()):
+                raise AssertionError(f"[uncalibrated] {detector} fails its gates")
+            runs[detector] = res
+        root = os.path.join(tmp, "MiddEval3")
+        write_middeval_scene(root, "Nonplanar", left, right, K, ndisp=200)
+        loaded = MiddEval3(root).load_training(0)
+        if not np.array_equal(loaded.image_right, right):
+            raise AssertionError("[uncalibrated] the tree does not load back equal")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "stereo_reconstruction_tpu_torch", "rectify", "--data", root,
+             "--scenario", "0", "--out", os.path.join(tmp, "cli"), *device_args],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"cli rectify exited {out.returncode}:\n{out.stderr}")
+        line = [json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")]
+        pngs = all(os.path.exists(os.path.join(tmp, "cli", n)) for n in (
+            "rectified_left.png", "rectified_right.png", "disparity_linear.png"))
+        if (len(line) != 1 or line[0]["num_inliers"] != runs["orb"].num_inliers
+                or line[0]["F_rectified"] is None or not pngs):
+            raise AssertionError(f"[uncalibrated] cli rectify: {line}, PNGs {pngs}; the "
+                                 f"in-process orb run has {runs['orb'].num_inliers} inliers")
+    print(f"[uncalibrated] cli rectify as a subprocess ({time.perf_counter() - t0:.1f} s): "
+          f"{line[0]['num_inliers']} inliers, as the in-process orb run; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -826,6 +1055,7 @@ def main() -> int:
     gt, mask = _true_disparity(H_lr, F, *left_np.shape[:2])
     pair = StereoPair(left_np, right_np, K.astype(np.float32), K.astype(np.float32),
                       disp_right_gt=gt, mask_right_nocc=mask, name="synthetic")
+    slice_pair = pair
     config = PipelineConfig()
     plain_config = config.replace(matcher=MatcherConfig(backend="xla"))
 
@@ -1088,6 +1318,11 @@ def main() -> int:
 
     # 11. the command line
     cli_phase(torch, dev, config, pairs[0])
+
+    # 12. the dense variants, 13. the uncalibrated path
+    variants_phase(torch, dev, smi, rect, slice_pair, F, pairs[0], counts, reset_counts,
+                   expected)
+    uncalibrated_phase(torch, dev, smi, counts, reset_counts, expected)
 
     print(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     csrc = "stereo_reconstruction_tpu_torch/csrc/"

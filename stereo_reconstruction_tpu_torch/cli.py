@@ -9,8 +9,12 @@ card the run raises, ``--device cpu`` runs on the CPU):
                as one batch (``pipeline_batch.run_batch``)
   eval         disparity metrics of a PFM against GT and a nocc mask
   reconstruct  the RUN_ALL=0 path: mesh a precomputed disparity map
-  rectify      not ported yet (NotImplementedError)
+  rectify      the uncalibrated ORB+F pipeline of one scenario
+               (``pipeline_uncalibrated.run_uncalibrated``)
   bench        not ported yet (NotImplementedError)
+
+``run --matcher`` takes ssd, sad and ncc; perceptual is not ported yet
+(NotImplementedError).
 
 Example:
   python -m stereo_reconstruction_tpu_torch run --data MiddEval3 \\
@@ -44,8 +48,8 @@ def main(argv=None):
     run_p.add_argument("--max-disparity", type=int, default=200)
     run_p.add_argument("--matcher", default="ssd",
                        choices=["ssd", "sad", "ncc", "perceptual"],
-                       help="dense matching cost (only ssd is ported; the others "
-                            "raise NotImplementedError)")
+                       help="dense matching cost (perceptual is not ported yet and "
+                            "raises NotImplementedError)")
     run_p.add_argument("--weights", default="",
                        help="converted VGG/LPIPS weights .npz for --matcher perceptual")
     run_p.add_argument("--png-compat", action="store_true",
@@ -63,7 +67,7 @@ def main(argv=None):
     device_arg(eval_p)
 
     rect_p = sub.add_parser(
-        "rectify", help="uncalibrated ORB+F pipeline (not ported yet)")
+        "rectify", help="uncalibrated ORB+F pipeline (reference rectification_main)")
     rect_p.add_argument("--data", required=True, help="MiddEval3 root")
     rect_p.add_argument("--scenario", type=int, default=13)
     rect_p.add_argument("--split", default="training", choices=["training", "test"])
@@ -71,6 +75,7 @@ def main(argv=None):
     rect_p.add_argument("--detector", default="orb", choices=["orb", "brisk", "dog"])
     rect_p.add_argument("--downsample", type=int, default=1)
     rect_p.add_argument("--max-disparity", type=int, default=200)
+    device_arg(rect_p)
 
     hit_p = sub.add_parser(
         "reconstruct", help="RUN_ALL=0 path: mesh a precomputed disparity map")
@@ -149,9 +154,24 @@ def _cmd_eval(args):
 
 
 def _cmd_rectify(args):
-    raise NotImplementedError(
-        "rectify (the uncalibrated ORB+F pipeline) is not ported yet: ROADMAP "
-        "Queue 1 item 4 (uncalibrated path) brings it")
+    from stereo_reconstruction_tpu_torch.config import PipelineConfig
+    from stereo_reconstruction_tpu_torch.pipeline_uncalibrated import run_uncalibrated
+
+    config = PipelineConfig()
+    config = config.replace(
+        matcher=dataclasses.replace(config.matcher, max_disparity=args.max_disparity))
+    args.scenario = [args.scenario]
+    pair = next(_load_pairs(args))
+    res = run_uncalibrated(np.asarray(pair.image_left), np.asarray(pair.image_right),
+                           config, detector=args.detector, output_dir=args.out,
+                           device=args.device)
+    print(json.dumps({
+        "scenario": pair.name,
+        "num_inliers": res.num_inliers,
+        "F": np.asarray(res.F).tolist(),
+        "F_rectified": None if res.F_rectified is None else np.asarray(
+            res.F_rectified).tolist(),
+    }))
 
 
 def _cmd_reconstruct(args):

@@ -320,7 +320,7 @@ def detect_and_describe_batch(images: torch.Tensor,
                               config: FrontendConfig = FrontendConfig()) -> Keypoints:
     """Keypoints of a batch of equally sized images, (B, H, W, 3) or
     (B, H, W); every field gets a leading batch axis."""
-    gray = rgb_to_gray(images) / 255.0
+    gray = (rgb_to_gray(images) if images.ndim == 4 else images.to(torch.float32)) / 255.0
     det = _detect(gray, config)
     B, K = det["yi"].shape
     b = torch.arange(B, device=gray.device)[:, None].expand(B, K)

@@ -1,12 +1,18 @@
 """Descriptor matching: Gram distances, Lowe ratio, mutual check.
 
-Port of ``match_descriptors`` and ``matches_to_homogeneous`` of
-``stereo_reconstruction_tpu/ops/matching.py`` (the reference's FLANN kNN
-matcher, ``src/PoseEstimation/keypoints.cpp:12-24``): all pairwise
-squared distances from one (K x K) Gram matmul, the 2-NN ratio test,
-the optional mutual-nearest check, and the duplicate-position filter of
-``uniqueColumnsInMatrix`` (utils.cpp:77-95: the first match per
-near-identical left position survives).
+Port of ``stereo_reconstruction_tpu/ops/matching.py``:
+
+  * ``match_descriptors`` (the reference's FLANN kNN matcher,
+    ``src/PoseEstimation/keypoints.cpp:12-24``): all pairwise squared
+    distances from one (K x K) Gram matmul, the 2-NN ratio test and the
+    optional mutual-nearest check;
+  * ``match_descriptors_binary`` (``cv::BFMatcher(NORM_HAMMING, true)``,
+    ``src/rectification_main.cpp:85``): Hamming distances of {0,1}
+    descriptors from one Gram matmul (exact in float32 with TF32 off),
+    the nearest match and the cross-check;
+  * the duplicate-position filter of ``uniqueColumnsInMatrix``
+    (utils.cpp:77-95: the first match per near-identical left position
+    survives), and ``matches_to_homogeneous``.
 """
 
 from __future__ import annotations
@@ -53,6 +59,26 @@ def match_descriptors(kp_left: Keypoints, kp_right: Keypoints,
     left_xy = kp_left.xy
     return Matches(left_xy=left_xy, right_xy=kp_right.xy[nn], distance=d1,
                    valid=_filter_duplicate_positions(left_xy, valid))
+
+
+def match_descriptors_binary(kp_left: Keypoints, kp_right: Keypoints) -> Matches:
+    """Brute-force Hamming matching with the mutual cross-check, no ratio
+    test. Descriptors are {0,1} float matrices, so Hamming(a, b) = |a| +
+    |b| - 2 a.b; ties go to the lower index."""
+    dl = kp_left.descriptors                       # (K, bits) in {0,1}
+    dr = kp_right.descriptors
+    K = dl.shape[0]
+    ham = (torch.sum(dl, dim=1)[:, None] + torch.sum(dr, dim=1)[None, :]
+           - 2.0 * (dl @ dr.T))
+    ham = torch.where(kp_right.valid[None, :], ham, torch.inf)
+    nn = torch.argmin(ham, dim=1)                  # left -> right
+    d1 = torch.gather(ham, 1, nn[:, None])[:, 0]
+    # crossCheck=true: keep (i, j) only if i is also j's nearest left
+    back = torch.argmin(torch.where(kp_left.valid[:, None], ham, torch.inf), dim=0)
+    valid = (kp_left.valid & torch.isfinite(d1)
+             & (back[nn] == torch.arange(K, device=dl.device)))
+    return Matches(left_xy=kp_left.xy, right_xy=kp_right.xy[nn], distance=d1,
+                   valid=_filter_duplicate_positions(kp_left.xy, valid))
 
 
 def _filter_duplicate_positions(xy: torch.Tensor, valid: torch.Tensor, tol: float = 1e-4):

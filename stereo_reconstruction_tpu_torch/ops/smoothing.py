@@ -1,9 +1,10 @@
-"""Smoothness-reweighted argmin over the cost volume (exact Right-variant
-reference mode).
+"""Smoothness-reweighted argmin over the cost volume.
 
-Port of ``stereo_reconstruction_tpu/ops/smoothing.py``
-(``volume_reductions``, ``smoothed_argmin_from_inputs``,
-``smoothed_argmin_reference``). The reference interleaves a multiplicative
+Port of ``stereo_reconstruction_tpu/ops/smoothing.py``. The exact
+Right-variant reference mode (``volume_reductions``,
+``smoothed_argmin_from_inputs``, ``smoothed_argmin_reference``) comes
+first; ``smoothed_argmin`` (any mode and variant, fixed sweeps or the
+fixpoint) and ``plain_argmin`` follow. The reference interleaves a multiplicative
 smoothness discount with the argmin (BlockSearch.cpp:160-171): a
 candidate's cost is multiplied by ``smoothFactor`` when the up (y-1, x)
 or left (y, x-1) neighbour chose ``-d`` (the Right variant's sign quirk).
@@ -25,6 +26,8 @@ twin of K1b (``ops/cuda_row_scan.py``), which runs it on the card.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -145,3 +148,100 @@ def smoothed_argmin_reference(
         m0, a0, c_zero, diag_up, diag_lf, black,
         smooth_factor=smooth_factor, d_first=d_first, n_planes=cost.shape[0],
     )
+
+
+# fixpoint sweeps of ``smoothed_argmin`` between two convergence tests. On
+# the card each test is a device-to-host sync, but no interval was reliably
+# faster at the 1128x1408 canvas (chip_smoke.py [variants], PERF.md): the
+# host-driven loop's spread between runs exceeds the differences, so the
+# test follows every sweep, as JAX's while loop does, and no sweep runs
+# past the fixpoint
+CHECK_EVERY = 1
+
+
+def smoothed_argmin(
+    cost: torch.Tensor,        # (D, H, W), +inf = invalid candidate
+    dvals: torch.Tensor,       # (D,) disparity value of each plane
+    black: torch.Tensor,       # (H, W) bool: pixels forced to 0
+    smooth_factor: float = 0.9,
+    mode: str = "reference",
+    iters: Optional[int] = 2,
+    variant: str = "right",
+    check_every: int = CHECK_EVERY,
+) -> torch.Tensor:
+    """The (H, W) float32 disparity of the smoothing recurrence for any
+    ``mode`` ("reference": the Right variant's -d sign quirk; "intended":
+    +d, the Left variant's; "none": no discount) and ``variant`` (the
+    no-candidate sentinel is -x for "right", +x for "left").
+
+    Rows run in order (the up neighbour is the final row above). Inside a
+    row, sweep 0 takes no left neighbour and each later sweep discounts
+    against the previous sweep's left-shifted disparities; black pixels
+    are forced to 0 after every sweep. ``iters`` sweeps in all, or with
+    ``iters=None`` until a sweep changes nothing (at most W sweeps after
+    the first): the fixpoint is the sequential recurrence's unique
+    solution, so it is exact for every mode. Sweeps past the fixpoint
+    change nothing, so convergence may be tested only every
+    ``check_every`` sweeps."""
+    D, h, w = cost.shape
+    device = cost.device
+    f32 = torch.float32
+    dvals = dvals.to(device=device, dtype=f32)
+    # a plane is discounted where sign * its value equals the neighbour's
+    # disparity, i.e. where hit_vals equals it
+    hit_vals = (-dvals if mode == "reference" else dvals)[:, None]
+    xs = torch.arange(w, dtype=f32, device=device)
+    sentinel = -xs if variant == "right" else xs
+    sf = torch.tensor(smooth_factor, dtype=f32, device=device)
+    zero = torch.zeros((), dtype=f32, device=device)
+    nan_row = torch.full((w,), float("nan"), dtype=f32, device=device)
+
+    def discounted(c, c_sf, neighbour):
+        """c (D, W) with c_sf (= c * smooth_factor) where a plane hits the
+        neighbour's disparity: c * discount, as c * 1 is c."""
+        if mode == "none":
+            return c
+        return torch.where(hit_vals == neighbour[None, :], c_sf, c)
+
+    out = torch.empty((h, w), dtype=f32, device=device)
+    prev = None
+    for y in range(h):
+        black_row = black[y]
+        cu = cost[:, y, :]
+        if y > 0:
+            cu = discounted(cu, cu * sf, prev)
+        cu_sf = cu * sf
+
+        def sweep(left_disp):
+            best, idx = torch.min(discounted(cu, cu_sf, left_disp), dim=0)
+            disp = torch.where(torch.isfinite(best), dvals[idx], sentinel)
+            return torch.where(black_row, zero, disp)
+
+        def shifted(d):
+            return torch.cat([nan_row[:1], d[:-1]])
+
+        disp = sweep(nan_row)
+        if iters is None:
+            last, disp, done = disp, sweep(shifted(disp)), 1
+            while done < w and not torch.equal(disp, last):
+                for _ in range(min(check_every, w - done)):
+                    last, disp = disp, sweep(shifted(disp))
+                    done += 1
+        else:
+            for _ in range(max(0, iters - 1)):
+                disp = sweep(shifted(disp))
+        out[y] = disp
+        prev = disp
+    return out
+
+
+def plain_argmin(cost: torch.Tensor, dvals: torch.Tensor, black: torch.Tensor,
+                 variant: str = "right") -> torch.Tensor:
+    """Unsmoothed winner-take-all disparity, (H, W) float32."""
+    D, h, w = cost.shape
+    best, idx = torch.min(cost, dim=0)
+    xs = torch.arange(w, dtype=torch.float32, device=cost.device)
+    sentinel = -xs if variant == "right" else xs
+    dvals = dvals.to(device=cost.device, dtype=torch.float32)
+    disp = torch.where(torch.isfinite(best), dvals[idx], sentinel[None, :])
+    return torch.where(black, 0.0, disp)

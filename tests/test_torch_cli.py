@@ -14,9 +14,14 @@ The trees are MiddEval3-shaped directories the test writes
 * ``eval`` and ``reconstruct`` (a HitNet results tree, with and without the
   GT-mean rescale) equal JAX's (metrics within 1e-4; the same mesh face
   count and valid-depth share);
-* ``rectify`` and ``bench`` raise ``NotImplementedError`` naming what
-  brings them, ``--matcher sad`` raises where the matcher does, and the
-  default ``--device cuda`` raises without a card.
+* ``run --matcher sad | ncc`` on the flat-row pair equals JAX's CLI and the
+  port's in-process ``run_pair``;
+* ``rectify`` on a MiddEval3 tree of ``tests/test_uncalibrated.py::_pair``
+  gives the in-process ``run_uncalibrated``'s F and inliers and writes the
+  three PNGs;
+* ``bench`` raises ``NotImplementedError`` naming what brings it,
+  ``--matcher perceptual`` raises where the matcher does, and the default
+  ``--device cuda`` raises without a card.
 """
 
 import json
@@ -173,7 +178,6 @@ def test_reconstruct_equals_jax(flat_tree, tmp_path, capsys, rescale):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["rectify", "--data", "x"], "item 4"),
     (["bench", "--quick"], "benchmark"),
 ])
 def test_unported_subcommands_raise(argv, what):
@@ -182,9 +186,50 @@ def test_unported_subcommands_raise(argv, what):
 
 
 def test_unported_matcher_raises(flat_tree, tmp_path):
-    with pytest.raises(NotImplementedError, match="sad"):
-        tcli.main(["run", "--data", flat_tree, "--scenario", "0", "--matcher", "sad",
+    with pytest.raises(NotImplementedError, match="perceptual"):
+        tcli.main(["run", "--data", flat_tree, "--scenario", "0", "--matcher", "perceptual",
                    "--max-disparity", "16", "--device", "cpu", "--out", str(tmp_path)])
+
+
+@pytest.mark.parametrize("matcher", ["sad", "ncc"])
+def test_run_with_a_dense_variant_equals_jax_and_run_pair(flat_tree, tmp_path, capsys,
+                                                          matcher):
+    args = ["run", "--data", flat_tree, "--scenario", "0", "--max-disparity", "16",
+            "--matcher", matcher]
+    want = _jax_cli(args + ["--out", str(tmp_path / "jax")], capsys)
+    got = _port_cli(args + ["--out", str(tmp_path / "torch")], capsys)
+    _close(got[0]["metrics"], want[0]["metrics"])
+    disp = read_pfm(str(tmp_path / "torch" / "Flat_disp.pfm"))
+    np.testing.assert_array_equal(disp, read_pfm(str(tmp_path / "jax" / "Flat_disp.pfm")))
+    config = PipelineConfig(matcher=MatcherConfig(max_disparity=16, cost=matcher))
+    res = tpipe.run_pair(MiddEval3(flat_tree).load_training(0), config, device="cpu")
+    np.testing.assert_array_equal(disp, res.disparity)
+    assert np.mean(disp[:, :80] == 5) > 0.9
+
+
+def test_rectify_equals_run_uncalibrated(tmp_path, capsys):
+    from stereo_reconstruction_tpu_torch.pipeline_uncalibrated import run_uncalibrated
+
+    from test_uncalibrated import _pair
+
+    left, right = (np.repeat(np.round(x)[..., None], 3, axis=2).astype(np.uint8)
+                   for x in _pair())
+    K = np.array([[184.0, 0, 92], [0, 184, 64], [0, 0, 1]])
+    root = str(tmp_path / "MiddEval3")
+    write_middeval_scene(root, "Shifted", left, right, K, ndisp=16)
+    out = str(tmp_path / "rect")
+    got = _port_cli(["rectify", "--data", root, "--scenario", "0", "--max-disparity", "16",
+                     "--out", out], capsys)
+    pair = MiddEval3(root).load_training(0)
+    want = run_uncalibrated(pair.image_left, pair.image_right,
+                            PipelineConfig(matcher=MatcherConfig(max_disparity=16)),
+                            device="cpu")
+    assert len(got) == 1 and got[0]["scenario"] == "Shifted"
+    assert got[0]["num_inliers"] == want.num_inliers >= 50
+    np.testing.assert_array_equal(np.asarray(got[0]["F"]), want.F)
+    np.testing.assert_array_equal(np.asarray(got[0]["F_rectified"]), want.F_rectified)
+    for name in ("rectified_left.png", "rectified_right.png", "disparity_linear.png"):
+        assert os.path.exists(os.path.join(out, name))
 
 
 def test_device_defaults_to_the_card(tmp_path):

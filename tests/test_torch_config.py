@@ -70,6 +70,8 @@ POSE_MODULES = ("ops.features", "ops.matching", "ops.geometry", "ops.small_linal
 ENTRY_MODULES = ("cli", "__main__", "pipeline_batch", "io.calib", "io.native", "io.image",
                  "data.middeval3", "data.hitnet", "utils", "utils.profiling",
                  "utils.batch", "utils.staging")
+UNCALIBRATED_MODULES = ("ops.binary_features", "ops.linear_search", "pose.fundamental",
+                        "rectify.epilines", "pipeline_uncalibrated")
 
 
 def _no_jax_env():
@@ -77,8 +79,8 @@ def _no_jax_env():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the pose stage's and the entry points'
-    included, imports without pulling in jax or the JAX package (whose
+    """Every module of the port, the pose stage's, the entry points' and the
+    uncalibrated path's included, imports without pulling in jax or the JAX package (whose
     __init__ imports jax). ``__main__`` runs the CLI when imported, so it
     is checked by ``test_module_entry_point_help``."""
     code = (
@@ -86,7 +88,7 @@ def test_port_imports_no_jax():
         "import stereo_reconstruction_tpu_torch as p\n"
         "names = [m.name[len(p.__name__) + 1:]\n"
         "         for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        f"missing = set({POSE_MODULES + ENTRY_MODULES!r}) - set(names)\n"
+        f"missing = set({POSE_MODULES + ENTRY_MODULES + UNCALIBRATED_MODULES!r}) - set(names)\n"
         "assert not missing, missing\n"
         "for name in names:\n"
         "    if name != '__main__':\n"
@@ -103,7 +105,8 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("argv", [["--help"], ["run", "--help"], ["eval", "--help"]])
+@pytest.mark.parametrize("argv", [["--help"], ["run", "--help"], ["eval", "--help"],
+                                  ["rectify", "--help"]])
 def test_module_entry_point_help(argv):
     """``python -m stereo_reconstruction_tpu_torch`` parses its arguments
     (``--device`` defaults to cuda) and imports no JAX on the way."""

@@ -14,7 +14,11 @@ on any input. K1b (the exact row scan) equals its plain twin bit for bit
 on any planes. The pose stage is plain PyTorch; on the card it must give
 the port's CPU pose for the same RANSAC draws. ``run_batch`` launches one
 K1 and one K1b per pair, agrees >= 99.5% with its plain backend, and masks
-a pair whose pose fails without moving its neighbours past 0.5%.
+a pair whose pose fails without moving its neighbours past 0.5%. The dense
+variants (SAD, NCC, the variable block) launch K1b once on the plain
+volume's planes and equal the plain scan there; they, the Left variant and
+the linear search agree with the port on the CPU; ``run_uncalibrated``
+meets its gates on the card for every detector.
 """
 
 import os
@@ -29,7 +33,9 @@ from stereo_reconstruction_tpu_torch.data.records import StereoPair, pad_to
 from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
 from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
 from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
-from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
+from stereo_reconstruction_tpu_torch.ops import cost_volume as tcv
+from stereo_reconstruction_tpu_torch.ops.block_search import block_search_left, block_search_right
+from stereo_reconstruction_tpu_torch.ops.linear_search import linear_search
 from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
 from stereo_reconstruction_tpu_torch.ops.smoothing import (
     smoothed_argmin_from_inputs,
@@ -37,6 +43,7 @@ from stereo_reconstruction_tpu_torch.ops.smoothing import (
 )
 from stereo_reconstruction_tpu_torch.pipeline import estimate_pose, run_pair
 from stereo_reconstruction_tpu_torch.pipeline_batch import batch_uniforms, run_batch, run_batches
+from stereo_reconstruction_tpu_torch.pipeline_uncalibrated import run_uncalibrated
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from chip_smoke import (  # noqa: E402
@@ -398,3 +405,63 @@ def test_run_batches_on_card_equals_run_batch(cuda):
         np.testing.assert_array_equal(piped[i].disparity, seq.disparity)
         assert piped[i].pose_ok.tolist() == seq.pose_ok.tolist()
         assert piped[i].depth is None
+
+
+VARIANTS = {
+    "sad": dict(cost="sad"),
+    "ncc": dict(cost="ncc"),
+    "var_block": dict(var_block=True, var_block_sizes=(5, 7, 9), texture_threshold=60.0),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_dense_variant_launches_k1b_on_the_plain_volume(cuda, rng, variant):
+    left, right = _integer_pair(rng, 60, 150, 7)
+    cfg = MatcherConfig(block_size=7, min_disparity=1, max_disparity=30, **VARIANTS[variant])
+    L, R = torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)
+    before = _launches()
+    got = block_search_right(L, R, cfg)
+    # one K1b launch, no K1, K2 or K3
+    assert _launches() == (before[0], before[1] + 1, before[2], before[3])
+    plain = block_search_right(L, R, MatcherConfig(backend="xla", block_size=7, min_disparity=1,
+                                                   max_disparity=30, **VARIANTS[variant]))
+    assert _launches() == (before[0], before[1] + 1, before[2], before[3])
+    assert torch.equal(got, plain)              # K1b equals the plain scan
+    cpu = block_search_right(torch.from_numpy(left), torch.from_numpy(right), cfg)
+    assert np.mean(got.cpu().numpy() == cpu.numpy()) >= 0.995
+
+
+def test_ncc_volume_on_card_matches_cpu(cuda, rng):
+    left, right = _integer_pair(rng, 40, 90, 5)
+    got = tcv.cost_volume_right_ncc(torch.from_numpy(left).to(cuda),
+                                    torch.from_numpy(right).to(cuda), 9, 0, 20).cpu()
+    want = tcv.cost_volume_right_ncc(torch.from_numpy(left), torch.from_numpy(right), 9, 0, 20)
+    assert torch.equal(got.isinf(), want.isinf())
+    fin = want.isfinite()
+    np.testing.assert_allclose(got[fin].numpy(), want[fin].numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_left_and_linear_search_on_card_match_cpu(cuda, rng):
+    left, right = _integer_pair(rng, 48, 120)
+    cfg = MatcherConfig(block_size=7, max_disparity=24)
+    L, R = torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)
+    got = block_search_left(L, R, cfg)
+    assert got.device.type == "cuda"
+    want = block_search_left(torch.from_numpy(left), torch.from_numpy(right), cfg)
+    assert np.mean(got.cpu().numpy() == want.numpy()) >= 0.995
+    got = linear_search(L, R, search_range=24)
+    want = linear_search(torch.from_numpy(left), torch.from_numpy(right), search_range=24)
+    assert np.mean(got.cpu().numpy() == want.numpy()) >= 0.995
+
+
+@pytest.mark.parametrize("detector", ["orb", "brisk", "dog"])
+def test_run_uncalibrated_on_card(cuda, tmp_path, detector):
+    left, right, *_ = nonplanar_scene(np.random.default_rng(0), 240, 320)
+    cfg = PipelineConfig(matcher=MatcherConfig(max_disparity=64))
+    res = run_uncalibrated(left, right, cfg, detector=detector, output_dir=str(tmp_path),
+                           device=cuda)
+    # the JAX package's recorded gate (tests/test_uncalibrated.py)
+    assert res.num_inliers >= 30 and res.epipolar_alignment_px <= 2.0
+    assert res.F_rectified is not None and np.isfinite(res.disparity).all()
+    for name in ("rectified_left.png", "rectified_right.png", "disparity_linear.png"):
+        assert os.path.exists(os.path.join(str(tmp_path), name))
