@@ -78,14 +78,14 @@ code 1, no result line) if anything is off:
    ``block_search_right``, each with exactly one K1b launch and K1b equal
    to the plain scan on the same volume's planes; ``run_pair(fixed_F=F)``
    with SAD and NCC (evaldisp bad-2.0 < 20% against the true disparity)
-   and ``run_batch`` with NCC; ``block_search_left`` and ``linear_search``
-   (no kernel) >= 99.5% equal to the port on the CPU on a 240x320 crop;
-   each route's ms, and the fixpoint smoother's ms at convergence tests
-   every 1, 2, 4, 8 and 16 sweeps and at 2 and 12 fixed sweeps
-   (interleaved rounds);
+   and ``run_batch`` with NCC; ``block_search_left`` (the fixpoint
+   smoother, no kernel) and ``linear_search`` (one K1b launch) >= 99.5%
+   equal to the port on the CPU on a 240x320 crop; each route's ms and the
+   Left volume's;
 13. the uncalibrated path: ``run_uncalibrated`` on ``nonplanar_scene``
    seed 0 at 750x900 (D=200) with orb, brisk and dog: >= 30 inliers,
-   epipolar alignment <= 2.0 px, F re-estimated, the three PNGs; and
+   epipolar alignment <= 2.0 px, F re-estimated, the three PNGs, one K1b
+   launch (``linear_search``) each; and
    ``python -m stereo_reconstruction_tpu_torch rectify`` as a subprocess
    on a MiddEval3 tree of the scene, with the in-process orb run's inliers.
 
@@ -117,8 +117,6 @@ CALLS = 10
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
-# interleaved rounds of the fixpoint smoother's timing in [variants]
-SMOOTHER_ROUNDS = 5
 # bound on evaldisp's bad-2.0 + invalid share against the synthetic scene's
 # true disparity (a 180x150 cut of the scene on the CPU gives 7.9%)
 MAX_TOTAL_BAD = 20.0
@@ -706,10 +704,7 @@ def variants_phase(torch, dev, smi, rect, pair, F, batch_pair, counts, reset_cou
     from stereo_reconstruction_tpu_torch.ops import cost_volume as cv
     from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
     from stereo_reconstruction_tpu_torch.ops import smoothing
-    from stereo_reconstruction_tpu_torch.ops.linear_search import (
-        cost_volume_linear,
-        linear_search,
-    )
+    from stereo_reconstruction_tpu_torch.ops.linear_search import linear_search
     from stereo_reconstruction_tpu_torch.pipeline import run_pair
     from stereo_reconstruction_tpu_torch.pipeline_batch import batch_uniforms, run_batch
 
@@ -769,15 +764,17 @@ def variants_phase(torch, dev, smi, rect, pair, F, batch_pair, counts, reset_cou
     print(f"[variants] run_batch ncc B=1: pose_ok, 1 K1b launch, bad-2.0 "
           f"{res.metrics[0]['bad_percent']:.3f}%", flush=True)
 
-    # the Left variant and the linear search: the fixpoint smoother, no kernel
+    # the Left variant (the fixpoint smoother, no kernel) and the linear
+    # search (the exact recurrence: K1b)
     y0, x0 = (rect.canvas[0] - 240) // 2, (rect.canvas[1] - 320) // 2
     crop = (slice(y0, y0 + 240), slice(x0, x0 + 320))
     cfg = MatcherConfig()
-    for name, fn in (("block_search_left", lambda l, r: bs.block_search_left(l, r, cfg)),
-                     ("linear_search", lambda l, r: linear_search(l, r))):
+    for name, fn, launches in (
+            ("block_search_left", lambda l, r: bs.block_search_left(l, r, cfg), {}),
+            ("linear_search", lambda l, r: linear_search(l, r), dict(K1b=1))):
         reset_counts()
         got = fn(L[crop].contiguous(), R[crop].contiguous())
-        if counts() != expected():
+        if counts() != expected(**launches):
             raise AssertionError(f"[variants] {name}: launches {counts()}")
         want = fn(L[crop].cpu(), R[crop].cpu())
         agree = float((got.cpu() == want).double().mean())
@@ -790,48 +787,10 @@ def variants_phase(torch, dev, smi, rect, pair, F, batch_pair, counts, reset_cou
         if agree < 0.995:
             raise AssertionError(f"[variants] {name}: CPU agreement {agree:.4%} < 99.5%")
 
-    # the fixpoint smoother alone, by convergence-test interval k, and at 2
-    # and 12 fixed sweeps (the cost of a sweep a row); the host-driven loop
-    # is noisy, so the calls run in interleaved rounds, each round in
-    # another order, and each setting reports its median
-    for name, make_volume, dvals, kw in (
-            ("left", lambda: cv.cost_volume_left_ssd(L, R, 17, 200),
-             torch.arange(1, 201, device=dev),
-             dict(mode="intended", variant="left", black=cv.black_pixel_mask(L))),
-            ("linear", lambda: cost_volume_linear(L, R, 200), torch.arange(200, device=dev),
-             dict(mode="reference", variant="right", black=(L == 0).all(dim=-1)))):
-        vol_ms, volume = _wall_ms(make_volume, torch)
-        settings = [dict(iters=None, check_every=k) for k in (1, 2, 4, 8, 16)]
-        settings += [dict(iters=2), dict(iters=12)]
-        ref = smoothing.smoothed_argmin(volume, dvals, kw["black"], mode=kw["mode"],
-                                        variant=kw["variant"], iters=None)
-        samples = [[] for _ in settings]
-        for r in range(SMOOTHER_ROUNDS):
-            for i in (list(range(len(settings))) if r % 2 == 0
-                      else list(reversed(range(len(settings))))):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = smoothing.smoothed_argmin(volume, dvals, kw["black"], mode=kw["mode"],
-                                                variant=kw["variant"], **settings[i])
-                torch.cuda.synchronize()
-                samples[i].append((time.perf_counter() - t0) * 1e3)
-                if settings[i]["iters"] is None and not torch.equal(out, ref):
-                    raise AssertionError(f"[variants] smoother ({name}) differs at "
-                                         f"{settings[i]}")
-        med = [statistics.median(x) for x in samples]
-        spread = [max(x) - min(x) for x in samples]
-        sweep_us = (med[6] - med[5]) * 1e3 / 10 / rect.canvas[0]
-        print(f"[variants] fixpoint smoother on the {name} volume ({tuple(rect.canvas)}, "
-              f"D=200; the volume {vol_ms:.2f} ms), ms by convergence-test interval "
-              f"(median of {SMOOTHER_ROUNDS} interleaved rounds, max - min in brackets, "
-              f"equal outputs): " + ", ".join(
-                  f"k={st['check_every']} {m:.1f} ({d:.1f})"
-                  for st, m, d in zip(settings[:5], med, spread))
-              + f"; default k={smoothing.CHECK_EVERY}; 2 sweeps a row {med[5]:.1f} ms, 12 "
-              f"sweeps {med[6]:.1f} ms: {sweep_us:.1f} us a sweep a row, so ~"
-              f"{2 + (med[0] - med[5]) * 1e3 / rect.canvas[0] / sweep_us:.1f} sweeps a "
-              f"row at the fixpoint (k=1, syncs counted as sweeps)", flush=True)
-        del volume
+    vol_ms, _ = _wall_ms(lambda: cv.cost_volume_left_ssd(L, R, 17, 200), torch)
+    print(f"[variants] the Left volume alone {tuple(rect.canvas)} D=200: {vol_ms:.2f} ms "
+          f"(median of 3, {smi}); the rest of block_search_left is the fixpoint smoother",
+          flush=True)
     print(f"[variants] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
@@ -856,14 +815,14 @@ def uncalibrated_phase(torch, dev, smi, counts, reset_counts, expected, h=750, w
             res = run_uncalibrated(left, right, config, detector=detector, output_dir=out,
                                    device=dev)
             wall = time.perf_counter() - t0
-            if counts() != expected():
+            if counts() != expected(K1b=1):
                 raise AssertionError(f"[uncalibrated] {detector}: launches {counts()}")
             pngs = all(os.path.exists(os.path.join(out, n)) for n in (
                 "rectified_left.png", "rectified_right.png", "disparity_linear.png"))
             print(f"[uncalibrated] {detector} {h}x{w}: {res.num_inliers} inliers, epipolar "
                   f"alignment {res.epipolar_alignment_px:.4f} px, F_rectified "
                   f"{res.F_rectified is not None}, PNGs {pngs}, disparity "
-                  f"{res.disparity.shape}; {wall * 1e3:.1f} ms with the PNGs ({smi})",
+                  f"{res.disparity.shape}, 1 K1b launch; {wall * 1e3:.1f} ms with the PNGs ({smi})",
                   flush=True)
             if not (res.num_inliers >= 30 and res.epipolar_alignment_px <= 2.0
                     and res.F_rectified is not None and pngs

@@ -5,8 +5,12 @@ Port of ``stereo_reconstruction_tpu/ops/linear_search.py``
 over a fixed search band to the right, with the same multiplicative
 smoothness discount, sign quirk included (the discount compares the
 neighbour's disparity with ``j - k = -d``, LinearSearch.cpp:39-44, while
-+d is stored), resolved by the fixpoint smoother
-(``smoothing.smoothed_argmin``).
++d is stored). With the default ``iters=None`` the recurrence is solved
+exactly by the Right variant's row scan on the volume's five planes
+(``smoothing.volume_reductions``, then ``cuda_row_scan.row_scan``: K1b on
+CUDA tensors, its plain twin on CPU ones), which equals JAX's fixpoint
+smoother; a fixed ``iters`` runs that many sweeps of
+``smoothing.smoothed_argmin``.
 
 Quirks kept from the reference:
   * the *left* image is tested for black pixels while the right image is
@@ -21,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
 from stereo_reconstruction_tpu_torch.ops import smoothing
 from stereo_reconstruction_tpu_torch.ops.cost_volume import D_CHUNK, sqrt_rn
 
@@ -62,17 +67,23 @@ def linear_search(
     right: torch.Tensor,
     smooth_factor: float = 0.9,
     search_range: int = 200,
-    iters: Optional[int] = None,   # None = in-row sweeps to the fixpoint (exact)
+    iters: Optional[int] = None,   # None = the exact recurrence (the row scan)
 ) -> torch.Tensor:
     """(H, W) float32 disparity of the right image (LinearSearch semantics)."""
     left = _with_channels(left)
     right = _with_channels(right)
     cost = cost_volume_linear(left, right, search_range)
-    dvals = torch.arange(search_range, device=right.device)
     # reference quirk: the black-pixel test reads the LEFT image
-    black = (left[:, :right.shape[1]] == 0).all(dim=-1)
-    disp = smoothing.smoothed_argmin(cost, dvals, black, smooth_factor=smooth_factor,
-                                     mode="reference", iters=iters, variant="right")
+    black = (left[:, :right.shape[1]] == 0).all(dim=-1).contiguous()
+    if iters is None:
+        planes = smoothing.volume_reductions(cost, 0)
+        del cost
+        disp = crs.row_scan(*planes, black, smooth_factor=smooth_factor, d_first=0,
+                            n_planes=search_range)
+    else:
+        dvals = torch.arange(search_range, device=right.device)
+        disp = smoothing.smoothed_argmin(cost, dvals, black, smooth_factor=smooth_factor,
+                                         mode="reference", iters=iters, variant="right")
     h = min(left.shape[0], right.shape[0])
     rows_valid = torch.arange(disp.shape[0], device=disp.device) < h
     return torch.where(rows_valid[:, None], disp, 0.0)

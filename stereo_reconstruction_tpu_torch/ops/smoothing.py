@@ -150,15 +150,6 @@ def smoothed_argmin_reference(
     )
 
 
-# fixpoint sweeps of ``smoothed_argmin`` between two convergence tests. On
-# the card each test is a device-to-host sync, but no interval was reliably
-# faster at the 1128x1408 canvas (chip_smoke.py [variants], PERF.md): the
-# host-driven loop's spread between runs exceeds the differences, so the
-# test follows every sweep, as JAX's while loop does, and no sweep runs
-# past the fixpoint
-CHECK_EVERY = 1
-
-
 def smoothed_argmin(
     cost: torch.Tensor,        # (D, H, W), +inf = invalid candidate
     dvals: torch.Tensor,       # (D,) disparity value of each plane
@@ -167,7 +158,6 @@ def smoothed_argmin(
     mode: str = "reference",
     iters: Optional[int] = 2,
     variant: str = "right",
-    check_every: int = CHECK_EVERY,
 ) -> torch.Tensor:
     """The (H, W) float32 disparity of the smoothing recurrence for any
     ``mode`` ("reference": the Right variant's -d sign quirk; "intended":
@@ -180,9 +170,8 @@ def smoothed_argmin(
     are forced to 0 after every sweep. ``iters`` sweeps in all, or with
     ``iters=None`` until a sweep changes nothing (at most W sweeps after
     the first): the fixpoint is the sequential recurrence's unique
-    solution, so it is exact for every mode. Sweeps past the fixpoint
-    change nothing, so convergence may be tested only every
-    ``check_every`` sweeps."""
+    solution, so it is exact for every mode. Convergence is tested after
+    every sweep, as JAX's while loop does."""
     D, h, w = cost.shape
     device = cost.device
     f32 = torch.float32
@@ -224,9 +213,8 @@ def smoothed_argmin(
         if iters is None:
             last, disp, done = disp, sweep(shifted(disp)), 1
             while done < w and not torch.equal(disp, last):
-                for _ in range(min(check_every, w - done)):
-                    last, disp = disp, sweep(shifted(disp))
-                    done += 1
+                last, disp = disp, sweep(shifted(disp))
+                done += 1
         else:
             for _ in range(max(0, iters - 1)):
                 disp = sweep(shifted(disp))

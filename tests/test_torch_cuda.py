@@ -449,17 +449,23 @@ def test_left_and_linear_search_on_card_match_cpu(cuda, rng):
     assert got.device.type == "cuda"
     want = block_search_left(torch.from_numpy(left), torch.from_numpy(right), cfg)
     assert np.mean(got.cpu().numpy() == want.numpy()) >= 0.995
+    before = _launches()
     got = linear_search(L, R, search_range=24)
+    # the exact recurrence: one K1b launch
+    assert _launches() == (before[0], before[1] + 1, before[2], before[3])
     want = linear_search(torch.from_numpy(left), torch.from_numpy(right), search_range=24)
-    assert np.mean(got.cpu().numpy() == want.numpy()) >= 0.995
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("detector", ["orb", "brisk", "dog"])
 def test_run_uncalibrated_on_card(cuda, tmp_path, detector):
     left, right, *_ = nonplanar_scene(np.random.default_rng(0), 240, 320)
     cfg = PipelineConfig(matcher=MatcherConfig(max_disparity=64))
+    before = _launches()
     res = run_uncalibrated(left, right, cfg, detector=detector, output_dir=str(tmp_path),
                            device=cuda)
+    # linear_search's one K1b launch
+    assert _launches() == (before[0], before[1] + 1, before[2], before[3])
     # the JAX package's recorded gate (tests/test_uncalibrated.py)
     assert res.num_inliers >= 30 and res.epipolar_alignment_px <= 2.0
     assert res.F_rectified is not None and np.isfinite(res.disparity).all()

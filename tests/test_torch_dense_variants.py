@@ -77,19 +77,22 @@ def test_smoothed_argmin_equals_jax(rng, mode, variant, iters):
                 cost, black, sf=0.9, mode=mode, variant=variant, dvals=dvals))
 
 
-@pytest.mark.parametrize("check_every", [1, 2, 5, 100])
-def test_fixpoint_does_not_depend_on_the_check_interval(rng, check_every):
-    """Sweeps past the fixpoint change nothing, so testing convergence
-    every k sweeps gives the same disparity for every k, and the same as
-    JAX's while loop (which tests after every sweep)."""
+@pytest.mark.parametrize("mode,variant", [("reference", "right"), ("reference", "left"),
+                                          ("intended", "right"), ("intended", "left")])
+def test_fixpoint_on_wide_rows_equals_jax_and_the_recurrence(rng, mode, variant):
+    """Wide rows with few candidates give long in-row smoothing chains, so
+    the fixpoint takes many sweeps; it still equals JAX's while loop and
+    the literal row-major recurrence."""
     cost, black = _planted_volume(rng, D=10, h=9, w=40)
     dvals = np.arange(10, dtype=np.float32)
     want = np.asarray(jsm.smoothed_argmin(
-        jnp.asarray(cost), jnp.asarray(dvals), jnp.asarray(black), mode="intended",
-        iters=None, variant="left"))
-    got = tsm.smoothed_argmin(_t(cost), _t(dvals), _t(black), mode="intended", iters=None,
-                              variant="left", check_every=check_every).numpy()
+        jnp.asarray(cost), jnp.asarray(dvals), jnp.asarray(black), mode=mode,
+        iters=None, variant=variant))
+    got = tsm.smoothed_argmin(_t(cost), _t(dvals), _t(black), mode=mode, iters=None,
+                              variant=variant).numpy()
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _sequential_smoothing_any_mode(
+        cost, black, sf=0.9, mode=mode, variant=variant, dvals=dvals))
 
 
 @pytest.mark.parametrize("variant", ["right", "left"])
