@@ -8,8 +8,9 @@ code 1, no result line) if anything is off:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: K1 (``csrc/matcher_inputs.cu``), K1b (``csrc/row_scan.cu``),
-   K2 (``csrc/cost_volume.cu``) and K3 (``csrc/block_search.cu``) with one
-   ``nvcc`` each for ``sm_90a``, all started together;
+   K2 (``csrc/cost_volume.cu``), K3 (``csrc/block_search.cu``) and K4
+   (``csrc/perceptual_scan.cu``) with one ``nvcc`` each for ``sm_90a``,
+   all started together;
 3. K1, K2 and K1b against their plain PyTorch twins on the card at four
    shapes — (a) 375x450, D=100, block 17 (MiddEval3 trainingQ), (b) the
    1128x1408 rectified canvas of a 750x900 pair, D=200, block 17 (the
@@ -87,9 +88,23 @@ code 1, no result line) if anything is off:
    epipolar alignment <= 2.0 px, F re-estimated, the three PNGs, one K1b
    launch (``linear_search``) each; and
    ``python -m stereo_reconstruction_tpu_torch rectify`` as a subprocess
-   on a MiddEval3 tree of the scene, with the in-process orb run's inliers.
+   on a MiddEval3 tree of the scene, with the in-process orb run's inliers;
+14. the perceptual matcher (BASELINE config 3) at 375x450, D=100, window
+   17, chunk 20, full VGG-16 widths with the seed-0 He-init weights: K4
+   bit-equal to its twin on planted volumes (``perceptual_volume``: ties,
+   W 1 to 700, chunk 1 to 64, the clamp ``mean == size``) and on the
+   scene's windowed volume; the windowed search on a random texture
+   shifted by 9 px (``perceptual_pair``) with one K4 launch and >= 95% of
+   interior pixels within 1 px of 9; the port's notebook oracle, fed the
+   search's own row y-1, 100% within 2 px and >= 98% exact on rows 11,
+   131, 252 and 304 (rows 370 and 373 printed); ``full_image`` mode's ms
+   and agreement; ``run_pair(fixed_F=F)`` with the perceptual cost on
+   the plane scene at 375x450 (one K4 launch, >= 99.5% equal to a direct
+   windowed search on the same rectified pair, back-warped); and ``python
+   -m stereo_reconstruction_tpu_torch run --matcher perceptual`` as a
+   subprocess on a MiddEval3 tree of that scene.
 
-Each path (5, 6, 8, 9, 10, 12, 13) runs with every launch count set to 0 just
+Each path (5, 6, 8, 9, 10, 12, 13, 14) runs with every launch count set to 0 just
 before it and read just after; the launches made to compare a kernel with
 its twin are not counted. The line before the last is ``{"kernels": [...]}``, each
 kernel with its bound (the larger of its bytes over 3.35 TB/s and its
@@ -157,6 +172,54 @@ def scan_volume(rng, h, w, d, ties=False):
     cost[0] = np.where(rng.uniform(size=(h, w)) < 0.3, 0.5, cost[0])
     cost[0] = np.where(rng.uniform(size=(h, w)) < 0.05, 0.0, cost[0])
     return cost, rng.uniform(size=(h, w)) < 0.1
+
+
+def perceptual_volume(rng, h, d, w, ties=False):
+    """An (h, d, w) float32 cost volume that drives every branch of the
+    windowed smoother (K4): costs in [1, 1.25] (so the weights, 0.85-1.85,
+    flip winners), +inf past each pixel's min(d, w - x) candidates as in a
+    real volume, a few more +inf entries and all-+inf pixels, and the last
+    valid candidate made cheap near the right edge, so a pixel's left
+    neighbour picks an index equal to its own candidate count (the clamp
+    ``mean == size``). ``ties`` rounds the costs to 1/8."""
+    cost = rng.uniform(1.0, 1.25, (h, d, w)).astype(np.float32)
+    if ties:
+        cost = np.round(cost * 8) / 8
+    cost[rng.uniform(size=cost.shape) < 0.05] = np.inf
+    cost[:, :, rng.uniform(size=w) < 0.02] = np.inf
+    sizes = np.minimum(d, w - np.arange(w))
+    edge = np.arange(w) >= w - d
+    cost[:, sizes[edge] - 1, np.flatnonzero(edge)] = 0.5
+    cost[:, np.arange(d)[:, None] >= sizes[None, :]] = np.inf
+    return cost
+
+
+def narrow_vgg_params(seed=3, widths=(4, 8, 8, 8, 8)):
+    """He-init VGG-16 weights with the given stage widths, in the JAX
+    package's layout, with their own non-uniform ``lins``: the perceptual
+    matcher's tests run the tower at these widths (full widths are slow on
+    a CPU)."""
+    rng = np.random.default_rng(seed)
+    params = {"convs": [], "lins": []}
+    in_ch = 3
+    for width, n_convs in zip(widths, (2, 2, 3, 3, 3)):
+        block = []
+        for _ in range(n_convs):
+            w = rng.normal(0, np.sqrt(2.0 / (9 * in_ch)), (width, in_ch, 3, 3))
+            block.append((w.astype(np.float32), np.zeros(width, np.float32)))
+            in_ch = width
+        params["convs"].append(block)
+        params["lins"].append((rng.uniform(0.5, 1.5, width) / width).astype(np.float32))
+    return params
+
+
+def perceptual_pair(rng, h, w, shift=4, noise=4.0):
+    """Random texture; the right image is the left shifted by ``shift``
+    columns (wrapping at the right edge) plus Gaussian noise, float32 in
+    [0, 255] (tests/test_perceptual.py's oracle pair)."""
+    left = rng.integers(0, 255, (h, w, 3)).astype(np.float32)
+    right = np.roll(left, -shift, axis=1) + rng.normal(0, noise, (h, w, 3)).astype(np.float32)
+    return left, np.clip(right, 0, 255).astype(np.float32)
 
 
 def _median_ms(fn, torch, calls=1):
@@ -485,7 +548,8 @@ def _kernel_split(call, torch):
 
 
 KERNEL_NAMES = {"K1": "matcher_inputs_kernel", "K1b": "row_scan_kernel",
-                "K2": "cost_volume_kernel", "K3": "block_search_rows_kernel"}
+                "K2": "cost_volume_kernel", "K3": "block_search_rows_kernel",
+                "K4": "perceptual_scan_kernel"}
 
 
 def _profiled_launches(call, torch):
@@ -854,6 +918,229 @@ def uncalibrated_phase(torch, dev, smi, counts, reset_counts, expected, h=750, w
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def _search_split(call, torch):
+    """(device ms by part, device ms in all, wall ms) of one profiled call
+    of the perceptual search: the cuDNN convolutions, the Gram products
+    (bmm), K4, and the rest; ({}, 0, wall) if the profiler saw no device
+    work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    parts, total = {"convolutions": 0.0, "gram": 0.0, "K4": 0.0}, 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        if e.device_type == DeviceType.CUDA:
+            total += us
+            if KERNEL_NAMES["K4"] in e.key:
+                parts["K4"] += us
+        elif e.key == "aten::cudnn_convolution":
+            parts["convolutions"] += us
+        elif e.key == "aten::bmm":
+            parts["gram"] += us
+    if total == 0.0:
+        return {}, 0.0, wall_ms
+    parts["other"] = total - sum(parts.values())
+    return parts, total, wall_ms
+
+
+def _window_scan_bound(h, d, w):
+    """Least time of K4 on an (h, d, w) volume: the volume and the table
+    read once, the indices written once, and 3 float32 operations an entry
+    (two products and a compare). Neither binds in practice: each strip's
+    chain of h * chunk dependent argmins does."""
+    return _bound(4 * (h * d * w + d + 1 + h * w), 3 * h * d * w)
+
+
+def perceptual_phase(torch, dev, smi, counts, reset_counts, expected, h=375, w=450, D=100,
+                     oracle_rows=(11, 131, 252, 304), edge_rows=(370, 373),
+                     cli_args=("--device", "cuda")):
+    """Phase 14: the perceptual matcher (BASELINE config 3) at (h, w), D,
+    window 17, chunk 20, full VGG-16 widths with the seed-0 He-init
+    weights; the notebook oracle gates ``oracle_rows`` and prints
+    ``edge_rows``; ``cli_args`` are added to the CLI's. Returns K4's
+    (launches, max abs err, (ms, plain ms), bound)."""
+    from stereo_reconstruction_tpu_torch.config import PerceptualConfig, PipelineConfig
+    from stereo_reconstruction_tpu_torch.data.records import StereoPair
+    from stereo_reconstruction_tpu_torch.io.pfm import read_pfm
+    from stereo_reconstruction_tpu_torch.ops.warp import warp_perspective
+    from stereo_reconstruction_tpu_torch.perceptual import cost as pcost
+    from stereo_reconstruction_tpu_torch.perceptual import scan as pscan
+    from stereo_reconstruction_tpu_torch.perceptual.notebook_oracle import notebook_rows
+    from stereo_reconstruction_tpu_torch.perceptual.vgg import vgg_module
+    from stereo_reconstruction_tpu_torch.pipeline import run_pair
+    from stereo_reconstruction_tpu_torch.rectify.rectifier import (
+        disparity_to_original_frame,
+        rectify_pair,
+    )
+
+    t_phase = time.perf_counter()
+    # K4 against its twin on planted volumes: ties, W not a multiple of the
+    # chunk, W = 1, chunk 1 and 20, the clamp mean == size, chunk > W
+    max_err, clamps = 0.0, 0
+    cases = [(6, 12, 50, 20, False), (5, 12, 50, 20, True), (4, 7, 1, 20, False),
+             (5, 8, 33, 1, True), (4, 40, 45, 20, False), (3, 30, 70, 7, True),
+             (3, 12, 40, 64, False), (4, 100, 450, 20, True), (2, 200, 700, 20, False)]
+    for ph, pd, pw, chunk, ties in cases:
+        vol = torch.from_numpy(perceptual_volume(np.random.default_rng(pw + chunk), ph, pd,
+                                                 pw, ties)).to(dev)
+        table = pscan.weight_table(pd, 25.0, 0.85, dev)
+        got = pscan.window_scan(vol, table, chunk)
+        want = pscan.window_scan_plain(vol, table, chunk)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 != plain twin on planted volume {(ph, pd, pw, chunk, ties)}: "
+                                 f"{(got != want).float().mean().item():.3%} of pixels")
+        sizes = torch.clamp(pw - torch.arange(pw, device=dev), max=pd)
+        pos = (torch.arange(1, pw, device=dev) % chunk) != 0
+        clamps += int(((want[:, :-1] >= sizes[1:]) & pos).sum())
+        max_err = max(max_err, _max_abs_err(got, want))
+    if clamps == 0:
+        raise AssertionError("no planted case reached the clamp mean == size")
+    print(f"[perceptual] K4 bit-equal to its twin on {len(cases)} planted volumes (ties, "
+          f"W 1 to 700, D 7 to 200, chunk 1 / 7 / 20 / 64; {clamps} pixels at the clamp "
+          f"mean == size)", flush=True)
+
+    # the windowed search at full width on a shifted random texture
+    d0 = 9
+    left_np, right_np = perceptual_pair(np.random.default_rng(SEED), h, w, shift=d0)
+    left, right = torch.from_numpy(left_np).to(dev), torch.from_numpy(right_np).to(dev)
+    pcfg = PerceptualConfig(max_disparity=D)                 # window 17, chunk 20
+    module = vgg_module("", seed=0, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    disp = pcost.windowed_lpips_search(module, left, right, pcfg)
+    torch.cuda.synchronize()
+    if counts() != expected(K4=1):
+        raise AssertionError(f"windowed search launches {counts()}: want one K4")
+    launches = counts()["K4"]
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if disp.shape != (h, w) or not torch.isfinite(disp).all():
+        raise AssertionError(f"windowed search: bad disparity {tuple(disp.shape)}")
+    disp_np = disp.cpu().numpy()
+    interior = disp_np[8:h - 8, 8:w - D - 8]
+    recovered = float(np.mean(np.abs(interior - d0) <= 1))
+    widths = "/".join(str(convs[-1].out_channels) for convs in module.blocks)
+    print(f"[perceptual] windowed search {h}x{w} D={D} window 17 chunk 20, VGG-16 "
+          f"{widths}: one K4 launch; {recovered:.6f} of interior pixels within "
+          f"1 px of the planted {d0}; peak {peak_gib:.2f} GiB", flush=True)
+    if recovered < 0.95:
+        raise AssertionError(f"shift recovery {recovered:.4%} < 95%")
+    vol_ms, volume = _wall_ms(lambda: pcost.windowed_lpips_cost_volume(module, left, right, pcfg),
+                              torch, repeats=2)
+    search_ms, _ = _wall_ms(lambda: pcost.windowed_lpips_search(module, left, right, pcfg),
+                            torch, repeats=2)
+    table = pscan.weight_table(D, pcfg.smoothing_sigma, pcfg.smoothing_bias, dev)
+    got = pscan.window_scan(volume, table, pcfg.chunk)
+    want = pscan.window_scan_plain(volume, table, pcfg.chunk)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K4 != plain twin on the scene's windowed volume")
+    max_err = max(max_err, _max_abs_err(got, want))
+    k4_ms = _median_ms(lambda: pscan.window_scan(volume, table, pcfg.chunk), torch, CALLS)
+    plain_ms = _median_ms(lambda: pscan.window_scan_plain(volume, table, pcfg.chunk), torch)
+    bound = _window_scan_bound(h, D, w)
+    print(f"[perceptual] {smi}: cost volume {vol_ms:.1f} ms, whole search {search_ms:.1f} ms "
+          f"(host clock, median of 2 after a warm-up); K4 {k4_ms:.4f} ms, bit-equal to its "
+          f"twin ({plain_ms:.2f} ms) on the volume (CUDA events, median of {REPEATS}); "
+          f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    del volume
+    split, device_ms, wall_ms = _search_split(
+        lambda: pcost.windowed_lpips_search(module, left, right, pcfg), torch)
+    print("[perceptual] profiled windowed search: " + (
+        ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+        + f" device ms; {device_ms:.1f} ms on the device in {wall_ms:.1f} ms wall "
+        f"({100 * device_ms / wall_ms:.1f}% busy)" if split else
+        "split not measured (the profiler saw no device work)"), flush=True)
+
+    # semantics: the port's notebook oracle, fed the search's own row y-1
+    rows = notebook_rows(module, left_np, right_np, oracle_rows + edge_rows, disp_np,
+                         max_disparity=D, chunk=pcfg.chunk, device=dev)
+    for y, row in rows.items():
+        exact = float(np.mean(row == disp_np[y]))
+        within2 = float(np.mean(np.abs(row - disp_np[y]) <= 2))
+        edge = y in edge_rows
+        print(f"[perceptual] notebook oracle row {y}: {exact:.6f} exact, {within2:.6f} "
+              f"within 2 px{' (bottom edge, not gated)' if edge else ''}", flush=True)
+        if not edge and (within2 < 1.0 or exact < 0.98):
+            raise AssertionError(f"oracle row {y}: {exact:.4%} exact, {within2:.4%} within 2 px")
+
+    # the full-image approximation at the same size
+    fcfg = PerceptualConfig(max_disparity=D, mode="full_image")
+    full_ms, full = _wall_ms(lambda: pcost.perceptual_window_search(module, left, right, fcfg),
+                             torch, repeats=2)
+    full_np = full.cpu().numpy()
+    print(f"[perceptual] full_image mode: {full_ms:.1f} ms; {np.mean(full_np == disp_np):.6f} "
+          f"equal to the windowed search, {np.mean(np.abs(full_np - disp_np) <= 1):.6f} within "
+          f"1 px; {np.mean(np.abs(full_np[8:h - 8, 8:w - D - 8] - d0) <= 1):.6f} of interior "
+          f"pixels within 1 px of {d0}", flush=True)
+
+    # run_pair with a known F on the smoke's plane scene at 375x450
+    rng = np.random.default_rng(SEED)
+    left_np, H_lr, F, K = _synthetic_scene(rng, h, w)
+    right_np = warp_perspective(torch.from_numpy(left_np).to(dev),
+                                torch.as_tensor(H_lr, dtype=torch.float32, device=dev),
+                                left_np.shape[:2])
+    right_np = right_np.round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+    gt, mask = _true_disparity(H_lr, F, h, w)
+    pair = StereoPair(left_np, right_np, K.astype(np.float32), K.astype(np.float32),
+                      disp_right_gt=gt, mask_right_nocc=mask, name="perceptual")
+    config = PipelineConfig()
+    config = config.replace(matcher=dataclasses.replace(config.matcher, cost="perceptual",
+                                                        max_disparity=D))
+    runs = []
+    for _ in range(2):
+        reset_counts()
+        res = run_pair(pair, config, fixed_F=F, device=dev)
+        if counts() != expected(K4=1):
+            raise AssertionError(f"perceptual run_pair launches {counts()}: want one K4")
+        runs.append(res)
+    rect = rectify_pair(torch.from_numpy(left_np).to(dev), torch.from_numpy(right_np).to(dev), F)
+    direct = pcost.windowed_lpips_search(module, rect.left, rect.right, pcfg)
+    direct = disparity_to_original_frame(direct, rect.homographies.H_right, (h, w)).cpu().numpy()
+    res = runs[0]
+    agree = float(np.mean(res.disparity == direct))
+    m = res.metrics
+    print(f"[perceptual] run_pair(fixed_F=F) {h}x{w} D={D} on the {tuple(rect.canvas)} canvas: "
+          f"one K4 launch; {agree:.6f} of pixels equal to a direct windowed search on the same "
+          f"rectified pair, back-warped; {np.mean(runs[1].disparity == res.disparity):.6f} equal "
+          f"between two runs; evaldisp vs the true disparity: bad-2.0 {m['bad_percent']:.3f}%, "
+          f"invalid {m['invalid_percent']:.3f}%; stage ms of run 2: "
+          + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in runs[1].timings.items()), flush=True)
+    if res.disparity.shape != (h, w) or not np.isfinite(res.disparity).all() or agree < 0.995:
+        raise AssertionError(f"perceptual run_pair: agreement {agree:.4%} < 99.5% or bad output")
+
+    # the command line, as a subprocess, on a MiddEval3 tree of the scene
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out_dir = os.path.join(tmp, "MiddEval3"), os.path.join(tmp, "out")
+        write_middeval_scene(root, "Perceptual", left_np, right_np, K, ndisp=D, gt=gt,
+                             mask=mask)
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "stereo_reconstruction_tpu_torch", "run",
+                              "--data", root, "--scenario", "0", "--matcher", "perceptual",
+                              "--max-disparity", str(D), "--out", out_dir, *cli_args],
+                             cwd=repo, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"cli run --matcher perceptual exited {out.returncode}:\n"
+                                 f"{out.stderr}")
+        lines = [json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")]
+        staged = read_pfm(os.path.join(out_dir, "Perceptual_disp.pfm"))
+        if len(lines) != 1 or staged.shape != (h, w) or not np.isfinite(staged).all():
+            raise AssertionError(f"cli run --matcher perceptual: {lines}, {staged.shape}")
+    print(f"[perceptual] python -m stereo_reconstruction_tpu_torch run --matcher perceptual "
+          f"{' '.join(cli_args)}: {cli_s:.1f} s, pose_ok {lines[0]['metrics']['pose_ok']}, bad-2.0 "
+          f"{lines[0]['metrics']['bad_percent']:.3f}%; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, max_err, (k4_ms, plain_ms), bound
+
+
 def main() -> int:
     import torch
 
@@ -874,20 +1161,21 @@ def main() -> int:
     from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
     from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
     from stereo_reconstruction_tpu_torch.ops.warp import warp_perspective
+    from stereo_reconstruction_tpu_torch.perceptual import scan as pscan
     from stereo_reconstruction_tpu_torch.pipeline import estimate_pose, run_pair
     from stereo_reconstruction_tpu_torch.rectify.rectifier import rectify_pair
 
     dev = torch.device("cuda", 0)
 
     def reset_counts():
-        ccv.LAUNCHES = crs.LAUNCHES = ccv.VOLUME_LAUNCHES = cbs.LAUNCHES = 0
+        ccv.LAUNCHES = crs.LAUNCHES = ccv.VOLUME_LAUNCHES = cbs.LAUNCHES = pscan.LAUNCHES = 0
 
     def counts():
         return {"K1": ccv.LAUNCHES, "K1b": crs.LAUNCHES, "K2": ccv.VOLUME_LAUNCHES,
-                "K3": cbs.LAUNCHES}
+                "K3": cbs.LAUNCHES, "K4": pscan.LAUNCHES}
 
     def expected(**k):
-        return {"K1": 0, "K1b": 0, "K2": 0, "K3": 0, **k}
+        return {"K1": 0, "K1b": 0, "K2": 0, "K3": 0, "K4": 0, **k}
 
     # 1. device
     smi = subprocess.run(
@@ -900,7 +1188,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     build.load_library()
-    print(f"[build] K1, K1b, K2, K3 loaded in {time.perf_counter() - t0:.2f} s "
+    print(f"[build] K1, K1b, K2, K3, K4 loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.BUILD_INFO.get('seconds', 0.0):.2f} s)")
     for line in build.BUILD_INFO.get("log", "").splitlines():
         if "registers" in line or "spill" in line or "entry function" in line:
@@ -1283,6 +1571,10 @@ def main() -> int:
                    expected)
     uncalibrated_phase(torch, dev, smi, counts, reset_counts, expected)
 
+    # 14. the perceptual matcher and K4
+    k4 = perceptual_phase(torch, dev, smi, counts, reset_counts, expected)
+    launches["K4"], max_err["K4"], times["K4", "scene"], bounds["K4", "scene"] = k4
+
     print(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     csrc = "stereo_reconstruction_tpu_torch/csrc/"
     kernels = [
@@ -1293,10 +1585,13 @@ def main() -> int:
          "stereo_reconstruction_tpu/ops/smoothing.py:125", ("K1b", "b")),
         ("K2", "cost volume", csrc + "cost_volume.cuh",
          "stereo_reconstruction_tpu/ops/pallas_cost_volume.py:68", ("K2", "b")),
-        ("K3", "fused block search",
-         "stereo_reconstruction_tpu_torch/csrc/block_search.cuh",
+        ("K3", "fused block search", csrc + "block_search.cuh",
          "stereo_reconstruction_tpu/ops/pallas_block_search.py:48", ("K3", "canvas")),
+        ("K4", "perceptual windowed smoother", csrc + "perceptual_scan.cuh",
+         "stereo_reconstruction_tpu/perceptual/cost.py:293", ("K4", "scene")),
     ]
+    at = {"b": "1128x1408 canvas, D=200, block 17", "canvas": "1128x1408 canvas, D=200, block 17",
+          "scene": "375x450, D=100, window 17, chunk 20 (the windowed volume)"}
     print(json.dumps({"kernels": [{
         "name": f"{k} {name}",
         "route": "cuda",
@@ -1309,7 +1604,7 @@ def main() -> int:
         "bound_ms": bounds[key][0],
         "bound_by": bounds[key][1],
         "library_ms": None,             # no single PyTorch call computes it
-        "at": "1128x1408 canvas, D=200, block 17",
+        "at": at[key[1]],
     } for k, name, src, replaces, key in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

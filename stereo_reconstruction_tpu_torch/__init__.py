@@ -3,9 +3,10 @@
 
 The JAX package stays the reference; this package mirrors its module
 paths so each counterpart is easy to find. Plain tensor code is PyTorch
-on an explicit ``device``; each Pallas kernel of the JAX package, and its
-exact row scan, is a CUDA C++ kernel for Hopper in ``csrc/`` (wrappers in
-``ops/cuda_*.py``). The entry points are ``pipeline.run_pair``,
+on an explicit ``device``; each Pallas kernel of the JAX package, its
+exact row scan and the perceptual matcher's smoother are CUDA C++ kernels
+for Hopper in ``csrc/`` (wrappers in ``ops/cuda_*.py`` and
+``perceptual/scan.py``). The entry points are ``pipeline.run_pair``,
 ``pipeline_batch.run_batch`` and ``python -m stereo_reconstruction_tpu_torch``
 (``cli.py``).
 

@@ -13,8 +13,9 @@ card the run raises, ``--device cpu`` runs on the CPU):
                (``pipeline_uncalibrated.run_uncalibrated``)
   bench        not ported yet (NotImplementedError)
 
-``run --matcher`` takes ssd, sad and ncc; perceptual is not ported yet
-(NotImplementedError).
+``run --matcher`` takes ssd, sad, ncc and perceptual (the VGG/LPIPS
+search; ``--weights`` names a converted ``.npz``, else the seeded He-init
+weights).
 
 Example:
   python -m stereo_reconstruction_tpu_torch run --data MiddEval3 \\
@@ -48,8 +49,7 @@ def main(argv=None):
     run_p.add_argument("--max-disparity", type=int, default=200)
     run_p.add_argument("--matcher", default="ssd",
                        choices=["ssd", "sad", "ncc", "perceptual"],
-                       help="dense matching cost (perceptual is not ported yet and "
-                            "raises NotImplementedError)")
+                       help="dense matching cost")
     run_p.add_argument("--weights", default="",
                        help="converted VGG/LPIPS weights .npz for --matcher perceptual")
     run_p.add_argument("--png-compat", action="store_true",

@@ -115,5 +115,11 @@ def load_library() -> ctypes.CDLL:
         lib.stpu_row_scan.argtypes = [p, p, p, p, p, p, p, i, i, ctypes.c_float,
                                       i, i, p]
         lib.stpu_row_scan.restype = i
+        lib.stpu_perceptual_scan.argtypes = [p, p, p, i, i, i, i, p]
+        lib.stpu_perceptual_scan.restype = i
+        lib.stpu_perceptual_scan_smem_bytes.argtypes = [i, i]
+        lib.stpu_perceptual_scan_smem_bytes.restype = ctypes.c_longlong
+        lib.stpu_perceptual_scan_max_smem.argtypes = []
+        lib.stpu_perceptual_scan_max_smem.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB

@@ -60,8 +60,8 @@ def block_search_right(
     pixels without a candidate ``-x``."""
     if config.cost not in ("ssd", "sad", "ncc"):
         raise NotImplementedError(
-            f"cost={config.cost!r}: block_search_right computes ssd, sad and ncc "
-            "(the perceptual cost is not ported yet)")
+            f"cost={config.cost!r}: block_search_right computes ssd, sad and ncc; "
+            "the perceptual cost runs through pipeline.compute_disparity")
     kernel = use_kernel(config, right.device)
     if config.min_disparity < 0:
         # the JAX package's answers there cannot be checked: its Pallas cost

@@ -36,6 +36,7 @@ from stereo_reconstruction_tpu_torch.ops.matching import (
     match_descriptors,
     matches_to_homogeneous,
 )
+from stereo_reconstruction_tpu_torch.perceptual import perceptual_window_search, vgg_module
 from stereo_reconstruction_tpu_torch.pose.pipeline import (
     PoseEstimate,
     estimate_pose_from_matches,
@@ -129,10 +130,17 @@ def estimate_pose(pair: StereoPair, config: PipelineConfig = PipelineConfig(),
 
 
 def compute_disparity(left, right, config: PipelineConfig) -> torch.Tensor:
-    """Dense right-image disparity on a rectified pair (SSD window search;
-    the perceptual cost is not ported yet)."""
+    """Dense right-image disparity on a rectified pair, on the device of the
+    images, dispatched on ``config.matcher.cost``: the window-search matcher
+    (ssd / sad / ncc, reference BlockSearch.cpp:88-179) or the perceptual
+    LPIPS search (reference notebook cells 6-10, BASELINE config 3) with
+    ``config.matcher.max_disparity`` and the VGG weights of
+    ``config.perceptual.weights_path`` (the seeded He-init ones without)."""
     if config.matcher.cost == "perceptual":
-        raise NotImplementedError("the perceptual matcher is not ported yet")
+        pcfg = dataclasses.replace(config.perceptual,
+                                   max_disparity=config.matcher.max_disparity)
+        module = vgg_module(pcfg.weights_path, seed=config.seed, device=right.device)
+        return perceptual_window_search(module, left, right, pcfg)
     return block_search_right(left, right, config.matcher)
 
 

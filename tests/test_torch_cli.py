@@ -19,9 +19,11 @@ The trees are MiddEval3-shaped directories the test writes
 * ``rectify`` on a MiddEval3 tree of ``tests/test_uncalibrated.py::_pair``
   gives the in-process ``run_uncalibrated``'s F and inliers and writes the
   three PNGs;
-* ``bench`` raises ``NotImplementedError`` naming what brings it,
-  ``--matcher perceptual`` raises where the matcher does, and the default
-  ``--device cuda`` raises without a card.
+* ``run --matcher perceptual --weights <narrow .npz>`` on the flat-row pair
+  stages its outputs and agrees with JAX's CLI (100% within 2 px, >= 98%
+  exact);
+* ``bench`` raises ``NotImplementedError`` naming what brings it, and the
+  default ``--device cuda`` raises without a card.
 """
 
 import json
@@ -40,11 +42,13 @@ from stereo_reconstruction_tpu_torch.config import MatcherConfig, PipelineConfig
 from stereo_reconstruction_tpu_torch.data import MiddEval3
 from stereo_reconstruction_tpu_torch.io.mesh_io import read_off
 from stereo_reconstruction_tpu_torch.io.pfm import read_pfm, write_pfm
+from stereo_reconstruction_tpu_torch.perceptual.vgg import save_params_npz
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 sys.path.insert(0, REPO)
 from chip_smoke import (  # noqa: E402
     flat_pair,
+    narrow_vgg_params,
     nonplanar_disparity,
     nonplanar_scene,
     write_middeval_scene,
@@ -185,10 +189,24 @@ def test_unported_subcommands_raise(argv, what):
         tcli.main(argv)
 
 
-def test_unported_matcher_raises(flat_tree, tmp_path):
-    with pytest.raises(NotImplementedError, match="perceptual"):
-        tcli.main(["run", "--data", flat_tree, "--scenario", "0", "--matcher", "perceptual",
-                   "--max-disparity", "16", "--device", "cpu", "--out", str(tmp_path)])
+def test_unported_matcher_raises(flat_tree, tmp_path, capsys):
+    """The perceptual matcher, refused until it was ported, now runs: ``run
+    --matcher perceptual --weights <narrow .npz>`` on the flat-row pair
+    (pose fails, so the raw pair is matched) stages its outputs, and its
+    disparity agrees with JAX's CLI on the same weights: 100% within 2 px
+    and >= 98% exact (tests/test_torch_perceptual.py's gate)."""
+    weights = str(tmp_path / "narrow.npz")
+    save_params_npz(weights, narrow_vgg_params())
+    args = ["run", "--data", flat_tree, "--scenario", "0", "--matcher", "perceptual",
+            "--weights", weights, "--max-disparity", "16"]
+    want = _jax_cli(args + ["--out", str(tmp_path / "jax")], capsys)
+    got = _port_cli(args + ["--out", str(tmp_path / "torch")], capsys)
+    assert len(got) == len(want) == 1 and got[0]["metrics"]["pose_ok"] == 0.0
+    disp = read_pfm(str(tmp_path / "torch" / "Flat_disp.pfm"))
+    jdisp = read_pfm(str(tmp_path / "jax" / "Flat_disp.pfm"))
+    assert disp.shape == (64, 96) and os.path.isfile(str(tmp_path / "torch" / "Flat_pose.json"))
+    assert np.mean(np.abs(disp - jdisp) <= 2) == 1.0 and np.mean(disp == jdisp) >= 0.98
+    assert set(got[0]["metrics"]) == set(want[0]["metrics"])
 
 
 @pytest.mark.parametrize("matcher", ["sad", "ncc"])

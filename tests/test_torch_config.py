@@ -72,6 +72,9 @@ ENTRY_MODULES = ("cli", "__main__", "pipeline_batch", "io.calib", "io.native", "
                  "utils.batch", "utils.staging")
 UNCALIBRATED_MODULES = ("ops.binary_features", "ops.linear_search", "pose.fundamental",
                         "rectify.epilines", "pipeline_uncalibrated")
+PERCEPTUAL_MODULES = ("perceptual", "perceptual.vgg", "perceptual.cost", "perceptual.scan",
+                      "perceptual.notebook_oracle")
+REQUIRED_MODULES = POSE_MODULES + ENTRY_MODULES + UNCALIBRATED_MODULES + PERCEPTUAL_MODULES
 
 
 def _no_jax_env():
@@ -79,16 +82,17 @@ def _no_jax_env():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the pose stage's, the entry points' and the
-    uncalibrated path's included, imports without pulling in jax or the JAX package (whose
-    __init__ imports jax). ``__main__`` runs the CLI when imported, so it
-    is checked by ``test_module_entry_point_help``."""
+    """Every module of the port, the pose stage's, the entry points', the
+    uncalibrated path's and the perceptual matcher's included, imports
+    without pulling in jax or the JAX package (whose __init__ imports jax).
+    ``__main__`` runs the CLI when imported, so it is checked by
+    ``test_module_entry_point_help``."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import stereo_reconstruction_tpu_torch as p\n"
         "names = [m.name[len(p.__name__) + 1:]\n"
         "         for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        f"missing = set({POSE_MODULES + ENTRY_MODULES + UNCALIBRATED_MODULES!r}) - set(names)\n"
+        f"missing = set({REQUIRED_MODULES!r}) - set(names)\n"
         "assert not missing, missing\n"
         "for name in names:\n"
         "    if name != '__main__':\n"

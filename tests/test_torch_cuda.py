@@ -18,7 +18,11 @@ a pair whose pose fails without moving its neighbours past 0.5%. The dense
 variants (SAD, NCC, the variable block) launch K1b once on the plain
 volume's planes and equal the plain scan there; they, the Left variant and
 the linear search agree with the port on the CPU; ``run_uncalibrated``
-meets its gates on the card for every detector.
+meets its gates on the card for every detector. K4 (the perceptual
+matcher's windowed smoother) equals its plain twin bit for bit on planted
+volumes, refuses what it does not take with a ``ValueError``, and the
+windowed search on the card agrees with the port on the CPU (narrow VGG
+widths: 100% within 2 px, >= 98% exact) with one K4 launch.
 """
 
 import os
@@ -44,13 +48,20 @@ from stereo_reconstruction_tpu_torch.ops.smoothing import (
 from stereo_reconstruction_tpu_torch.pipeline import estimate_pose, run_pair
 from stereo_reconstruction_tpu_torch.pipeline_batch import batch_uniforms, run_batch, run_batches
 from stereo_reconstruction_tpu_torch.pipeline_uncalibrated import run_uncalibrated
+from stereo_reconstruction_tpu_torch.config import PerceptualConfig
+from stereo_reconstruction_tpu_torch.perceptual import scan as pscan
+from stereo_reconstruction_tpu_torch.perceptual.cost import windowed_lpips_search
+from stereo_reconstruction_tpu_torch.perceptual.vgg import save_params_npz
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from chip_smoke import (  # noqa: E402
     _random_stereo,
     flat_pair,
+    narrow_vgg_params,
     nonplanar_disparity,
     nonplanar_scene,
+    perceptual_pair,
+    perceptual_volume,
     pose_angles,
     scan_volume,
 )
@@ -471,3 +482,69 @@ def test_run_uncalibrated_on_card(cuda, tmp_path, detector):
     assert res.F_rectified is not None and np.isfinite(res.disparity).all()
     for name in ("rectified_left.png", "rectified_right.png", "disparity_linear.png"):
         assert os.path.exists(os.path.join(str(tmp_path), name))
+
+
+@pytest.mark.parametrize("h,d,w,chunk,ties", [
+    (6, 12, 50, 20, False), (5, 12, 50, 20, True), (4, 7, 1, 20, False),
+    (5, 8, 33, 1, True), (4, 40, 45, 20, False), (3, 30, 70, 7, True),
+    (3, 12, 40, 64, False), (3, 100, 450, 20, True), (2, 200, 700, 33, False),
+])
+def test_k4_bit_equal_to_plain_on_planted_volumes(cuda, h, d, w, chunk, ties):
+    vol = torch.from_numpy(perceptual_volume(np.random.default_rng(w + chunk), h, d, w,
+                                             ties)).to(cuda)
+    table = pscan.weight_table(d, 25.0, 0.85, cuda)
+    got = pscan.window_scan(vol, table, chunk)
+    want = pscan.window_scan_plain(vol, table, chunk)
+    assert got.device.type == "cuda" and torch.equal(got, want)
+
+
+def test_k4_wrapper_checks_and_counts(cuda):
+    vol = torch.from_numpy(perceptual_volume(np.random.default_rng(0), 3, 12, 40)).to(cuda)
+    table = pscan.weight_table(12, 25.0, 0.85, cuda)
+    before = pscan.LAUNCHES
+    pscan.window_scan(vol, table, 20)
+    assert pscan.LAUNCHES == before + 1
+    pscan.window_scan_plain(vol, table, 20)
+    assert pscan.LAUNCHES == before + 1
+    with pytest.raises(ValueError, match="one CUDA device"):
+        pscan.window_scan(vol, table.cpu(), 20)
+    with pytest.raises(ValueError, match="D \\+ 1 = 13"):
+        pscan.window_scan(vol, table[:12].contiguous(), 20)
+    with pytest.raises(ValueError, match="chunk >= 1"):
+        pscan.window_scan(vol, table, 0)
+    with pytest.raises(ValueError, match="float32"):
+        pscan.window_scan(vol.double(), table, 20)
+    with pytest.raises(ValueError, match="contiguous"):
+        pscan.window_scan(vol.transpose(1, 2).contiguous().transpose(1, 2), table, 20)
+    big = torch.zeros((1, 2000, 64), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        pscan.window_scan(big, pscan.weight_table(2000, 25.0, 0.85, cuda), 64)
+    assert pscan.max_smem() == 232448
+    assert pscan.LAUNCHES == before + 1
+
+
+def test_windowed_search_on_card_matches_cpu(cuda, tmp_path):
+    left, right = perceptual_pair(np.random.default_rng(1), 20, 60)
+    params = narrow_vgg_params()
+    cfg = PerceptualConfig(max_disparity=16, row_block=8)
+    before = pscan.LAUNCHES
+    got = windowed_lpips_search(params, torch.from_numpy(left).to(cuda),
+                                torch.from_numpy(right).to(cuda), cfg)
+    assert pscan.LAUNCHES == before + 1 and got.device.type == "cuda"
+    want = windowed_lpips_search(params, torch.from_numpy(left), torch.from_numpy(right), cfg)
+    got = got.cpu().numpy()
+    want = want.numpy()
+    assert np.mean(np.abs(got - want) <= 2) == 1.0 and np.mean(got == want) >= 0.98
+    # the same through compute_disparity with the weights from a file
+    from stereo_reconstruction_tpu_torch.pipeline import compute_disparity
+
+    path = str(tmp_path / "narrow.npz")
+    save_params_npz(path, params)
+    config = PipelineConfig()
+    config = config.replace(
+        matcher=MatcherConfig(cost="perceptual", max_disparity=16),
+        perceptual=PerceptualConfig(weights_path=path))
+    disp = compute_disparity(torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda),
+                             config)
+    assert pscan.LAUNCHES == before + 2 and disp.device.type == "cuda"
+    assert np.mean(disp.cpu().numpy() == got) >= 0.995
