@@ -102,13 +102,37 @@ code 1, no result line) if anything is off:
    the plane scene at 375x450 (one K4 launch, >= 99.5% equal to a direct
    windowed search on the same rectified pair, back-warped); and ``python
    -m stereo_reconstruction_tpu_torch run --matcher perceptual`` as a
-   subprocess on a MiddEval3 tree of that scene.
+   subprocess on a MiddEval3 tree of that scene;
+15. the multi-device layer (``parallel/``) on a data=2, tile=4 mesh over
+   ``cuda:0`` x 8, two integer-valued pairs at 1128x1408, D=200, block 17
+   (282 rows a tile): K1 and K2 in global-row mode bit-equal to their
+   twins on every halo-extended tile (the exact mode's and the warm-up
+   mode's) and, the kept rows stitched, to K1 / K2 on the whole image;
+   K1b seeded (``first_flags``, ``init_prev``) bit-equal to its twin on
+   planted planes at widths that reach its four instances and on the
+   matcher's own seeded and warm-up tiles of the pair, and a chain of
+   seeded tiles to one launch; the exact
+   ``sharded_block_search_right`` bit-identical to ``block_search_right``
+   of each pair with 8 K1 and 32 K1b launches (one K1 per pair and tile, 4
+   seeded passes each), the warm-up mode >= 99.5% equal with 8 + 8;
+   ``sharded_evaldisp`` against ``evaldisp``; the distributed BAs on the
+   non-planar scene's BA matches against ``bundle_adjust`` and the
+   per-pair solves; the multi-view BA over the mesh against one device
+   (rotations as they are, translations and points up to the scale
+   gauge, its factor within 5e-3 of 1) and ``fuse_point_cloud``; and a
+   one-process NCCL group
+   (``multihost``, a ``file://`` store) running the exact matcher equal
+   to the one-process mesh.
 
-Each path (5, 6, 8, 9, 10, 12, 13, 14) runs with every launch count set to 0 just
+``python3 chip_smoke.py --time-kernels`` times K1, K1b, K2 and K3 at
+shape (b) and prints one JSON line (``time_kernels``).
+
+Each path (5, 6, 8, 9, 10, 12, 13, 14, 15) runs with every launch count set to 0 just
 before it and read just after; the launches made to compare a kernel with
 its twin are not counted. The line before the last is ``{"kernels": [...]}``, each
 kernel with its bound (the larger of its bytes over 3.35 TB/s and its
-float32 operations over 67 TFLOP/s, counted for this run's inputs); the
+float32 operations over 67 TFLOP/s, counted for this run's inputs by
+``stereo_reconstruction_tpu_torch/utils/roofline.py``); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -125,13 +149,13 @@ import time
 
 import numpy as np
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+from torch_helpers import halo_tile, scale_aligned, scan_volume  # noqa: E402
+
 SEED = 0
 REPEATS = 5
 # kernel launches per timed sample (one host call would time the enqueue)
 CALLS = 10
-# the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
 # bound on evaldisp's bad-2.0 + invalid share against the synthetic scene's
 # true disparity (a 180x150 cut of the scene on the CPU gives 7.9%)
 MAX_TOTAL_BAD = 20.0
@@ -155,23 +179,6 @@ def _random_stereo(rng, h, w, max_d=8, noise=6, wl_extra=0):
     right[:, :2] = 0
     left = np.pad(left, ((0, 0), (0, wl_extra), (0, 0)))
     return left, right
-
-
-def scan_volume(rng, h, w, d, ties=False):
-    """A (d, h, w) float32 cost volume and an (h, w) black mask that drive
-    every branch of the exact smoothing row scan: costs in [1, 1.25] (so the
-    0.9 discount flips winners), +inf entries, pixels with no candidate
-    (sentinel -x), cheap and exactly-zero d = 0 entries, black pixels.
-    ``ties`` rounds the costs to 1/8, so equal values and the index rule
-    decide."""
-    cost = rng.uniform(1.0, 1.25, (d, h, w)).astype(np.float32)
-    if ties:
-        cost = np.round(cost * 8) / 8
-    cost[rng.uniform(size=cost.shape) < 0.2] = np.inf
-    cost[:, rng.uniform(size=(h, w)) < 0.15] = np.inf
-    cost[0] = np.where(rng.uniform(size=(h, w)) < 0.3, 0.5, cost[0])
-    cost[0] = np.where(rng.uniform(size=(h, w)) < 0.05, 0.0, cost[0])
-    return cost, rng.uniform(size=(h, w)) < 0.1
 
 
 def perceptual_volume(rng, h, d, w, ties=False):
@@ -238,38 +245,6 @@ def _median_ms(fn, torch, calls=1):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1) / calls)
     return statistics.median(times)
-
-
-def _bound(nbytes, ops):
-    """(ms, what binds): the larger of the bytes over the card's memory rate
-    and the float32 operations over its peak rate."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _matcher_bound(s, out_planes):
-    """Least time of a cost kernel at shape ``s`` with ``out_planes`` (H, W)
-    float32 outputs: both images read once, the outputs written once, and
-    per (pixel, plane) with a candidate 9 operations of squared difference,
-    2 x 2hbs window adds, a sqrt, a multiply and a compare. The bound is
-    the function's: K1's left layout pass (12 B x H x WLp written to its
-    own scratch and read back) is left out."""
-    h, w, hbs = s["h"], s["w"], (s["bs"] - 1) // 2
-    wl, min_d, d = w + s["wl_extra"], s["min_d"], s["max_d"] - s["min_d"]
-    pairs = 0
-    if hbs > 0 and h > 1 and w > 1:
-        reach = np.minimum(w - 1, np.arange(w) + hbs)    # x + min(W-1-x, hbs)
-        pairs = h * int(np.clip(wl - reach - min_d, 0, d).sum())
-    nbytes = 4 * 3 * h * (w + wl) + 4 * out_planes * h * w
-    return _bound(nbytes, pairs * (9 + 4 * hbs + 3))
-
-
-def _scan_bound(h, w):
-    """Least time of K1b on an (h, w) row: five planes and the mask read,
-    the disparity written (25 bytes a pixel), and ~30 float32 operations a
-    pixel (the up product, three candidates of two products and four
-    compares each). Neither binds in practice: the h dependent rows do."""
-    return _bound(25 * h * w, 30 * h * w)
 
 
 def _max_abs_err(got, want):
@@ -949,14 +924,6 @@ def _search_split(call, torch):
     return parts, total, wall_ms
 
 
-def _window_scan_bound(h, d, w):
-    """Least time of K4 on an (h, d, w) volume: the volume and the table
-    read once, the indices written once, and 3 float32 operations an entry
-    (two products and a compare). Neither binds in practice: each strip's
-    chain of h * chunk dependent argmins does."""
-    return _bound(4 * (h * d * w + d + 1 + h * w), 3 * h * d * w)
-
-
 def perceptual_phase(torch, dev, smi, counts, reset_counts, expected, h=375, w=450, D=100,
                      oracle_rows=(11, 131, 252, 304), edge_rows=(370, 373),
                      cli_args=("--device", "cuda")):
@@ -1044,7 +1011,9 @@ def perceptual_phase(torch, dev, smi, counts, reset_counts, expected, h=375, w=4
     max_err = max(max_err, _max_abs_err(got, want))
     k4_ms = _median_ms(lambda: pscan.window_scan(volume, table, pcfg.chunk), torch, CALLS)
     plain_ms = _median_ms(lambda: pscan.window_scan_plain(volume, table, pcfg.chunk), torch)
-    bound = _window_scan_bound(h, D, w)
+    from stereo_reconstruction_tpu_torch.utils.roofline import window_scan_bound
+
+    bound = window_scan_bound(h, D, w)
     print(f"[perceptual] {smi}: cost volume {vol_ms:.1f} ms, whole search {search_ms:.1f} ms "
           f"(host clock, median of 2 after a warm-up); K4 {k4_ms:.4f} ms, bit-equal to its "
           f"twin ({plain_ms:.2f} ms) on the volume (CUDA events, median of {REPEATS}); "
@@ -1141,6 +1110,376 @@ def perceptual_phase(torch, dev, smi, counts, reset_counts, expected, h=375, w=4
     return launches, max_err, (k4_ms, plain_ms), bound
 
 
+def synthetic_sequence(rng, M=4, n_grid=8):
+    """M cameras on an arc over a jittered grid of n_grid^2 points at depth
+    8-12 (tests/test_ba_multiview.py's sequence): (K, poses (M, 6)
+    angle-axis + translation, camera 0 at the origin, points (N, 3),
+    observations (M, N, 2))."""
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    g = np.linspace(-2, 2, n_grid)
+    xx, yy = np.meshgrid(g, g)
+    zz = 10.0 + rng.uniform(-2, 2, xx.shape)
+    X = np.stack([xx.ravel(), yy.ravel(), zz.ravel()], axis=1)
+    poses = np.zeros((M, 6))
+    obs = np.zeros((M, X.shape[0], 2))
+    for m in range(M):
+        if m:
+            poses[m, :3] = [0.0, 0.08 * m, 0.02 * m]
+            poses[m, 3:] = [0.5 * m, 0.05 * m, 0.1 * m]
+        R = _rodrigues(poses[m, :3]) if m else np.eye(3)
+        p = (X @ R.T + poses[m, 3:]) @ K.T
+        obs[m] = p[:, :2] / p[:, 2:3]
+    return K, poses, X, obs
+
+
+def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=1408, D=200,
+                  bs=17, backend="nccl"):
+    """The multi-device layer on one card: a data=2, tile=4 mesh over
+    ``cuda:0`` x 8 (282-row tiles at the reference canvas); ``backend``
+    is the process group's."""
+    from stereo_reconstruction_tpu_torch.config import (BundleAdjustmentConfig,
+                                                        MatcherConfig, PipelineConfig)
+    from stereo_reconstruction_tpu_torch.data.records import StereoPair
+    from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
+    from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
+    from stereo_reconstruction_tpu_torch.ops import geometry as geo
+    from stereo_reconstruction_tpu_torch.ops import smoothing
+    from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
+    from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
+    from stereo_reconstruction_tpu_torch.ops.metrics import evaldisp
+    from stereo_reconstruction_tpu_torch.parallel import (
+        ba_multiview, distributed_bundle_adjust, distributed_bundle_adjust_batch,
+        make_mesh, multihost, sharded_block_search_right, sharded_evaldisp)
+    from stereo_reconstruction_tpu_torch.pipeline import estimate_pose
+    from stereo_reconstruction_tpu_torch.pose.ba import bundle_adjust
+    from stereo_reconstruction_tpu_torch.utils.roofline import matcher_bound, scan_bound
+
+    t_phase = time.perf_counter()
+    data, n_tiles = 2, 4
+    mesh = make_mesh(data=data, tile=n_tiles, devices=[dev] * (data * n_tiles))
+    rows, hw = h // n_tiles, bs - 1
+    rng = np.random.default_rng(SEED + 15)
+    pairs = [_random_stereo(rng, h, w) for _ in range(data)]
+    left = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+    right = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
+    lf, rf = left[0].float(), right[0].float()
+    args = (bs, 0, D)
+    out = {}
+
+    # K1 and K2 in global mode on every halo-extended tile of pair 0: the
+    # exact mode's (hw rows of halo) and the warm-up mode's (32 + hw above)
+    whole_k1 = ccv.matcher_inputs(lf, rf, *args)
+    whole_k2 = ccv.cost_volume(lf, rf, *args)
+    k1_rows = [[] for _ in whole_k1]
+    k2_rows = []
+    n_checked = 0
+    for top in (hw, 32 + hw):
+        for t in range(n_tiles):
+            row0, n = t * rows - top, top + rows + hw
+            lt, rt = halo_tile(lf, row0, n), halo_tile(rf, row0, n)
+            g = dict(row_offset=row0, total_height=h)
+            planes = ccv.matcher_inputs(lt, rt, *args, **g)
+            twin = ccv.matcher_inputs_plain(lt, rt, *args, **g)
+            vol = ccv.cost_volume(lt, rt, *args, **g)
+            vol_twin = ccv.cost_volume_right_ssd(lt, rt, *args, **g)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("m0", "a0", "c_zero", "diag_up", "diag_lf"), planes, twin):
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise AssertionError(f"K1 global rows != twin, tile {t} (halo {top}), {name}")
+            if not torch.equal(vol, vol_twin):
+                raise AssertionError(f"K2 global rows != twin, tile {t} (halo {top})")
+            if top == hw:          # the kept rows, stitched below
+                for i, a in enumerate(planes):
+                    k1_rows[i].append(a[hw:hw + rows])
+                k2_rows.append(vol[:, hw:hw + rows])
+            n_checked += 1
+            del twin, vol_twin
+    for name, parts, a in zip(("m0", "a0", "c_zero", "diag_up", "diag_lf"), k1_rows, whole_k1):
+        if not torch.equal(torch.cat(parts), a):
+            raise AssertionError(f"K1 tiles stitched != K1 on the whole image, {name}")
+    if not torch.equal(torch.cat(k2_rows, dim=1), whole_k2):
+        raise AssertionError("K2 tiles stitched != K2 on the whole image")
+    del whole_k2, k2_rows
+    # one inner tile's times
+    row0, n = rows - hw, rows + 2 * hw
+    lt, rt = halo_tile(lf, row0, n), halo_tile(rf, row0, n)
+    g = dict(row_offset=row0, total_height=h)
+    tile_shape = dict(h=n, w=w, wl_extra=0, bs=bs, min_d=0, max_d=D)
+    for name, kern, plain, planes_out in (
+            ("K1", ccv.matcher_inputs, ccv.matcher_inputs_plain, 5),
+            ("K2", ccv.cost_volume, ccv.cost_volume_right_ssd, D)):
+        k_ms = _median_ms(lambda: kern(lt, rt, *args, **g), torch, CALLS)
+        p_ms = _median_ms(lambda: plain(lt, rt, *args, **g), torch)
+        out[name] = (k_ms, p_ms, matcher_bound(tile_shape, planes_out))
+    print(f"[sharded] {smi}: K1 and K2 in global-row mode bit-equal to their twins on "
+          f"{n_checked} halo-extended tiles of a {h}x{w} D={D} block {bs} pair (integer "
+          f"valued), the kept rows stitched bit-equal to K1 / K2 on the whole image; one "
+          f"{n}-row tile: K1 {out['K1'][0]:.4f} ms (plain {out['K1'][1]:.2f}, bound "
+          f"{out['K1'][2][0]:.4f}), K2 {out['K2'][0]:.4f} ms (plain {out['K2'][1]:.2f}, "
+          f"bound {out['K2'][2][0]:.4f}); CUDA events, median of {REPEATS}", flush=True)
+
+    # K1b seeded: planted planes with random first flags and seed rows, at
+    # widths that reach each of its four instances (K = ceil(W / 1024))
+    planted = ((9, 33, 0), (7, 700, 2), (6, 1100, 1), (6, 2500, 0), (5, crs.max_width(), 1))
+    for hh, ww, d_first in planted:
+        srng = np.random.default_rng(SEED + ww)
+        cost, black = scan_volume(srng, hh, ww, 12)
+        planes = smoothing.volume_reductions(torch.from_numpy(cost).to(dev), d_first)
+        black = torch.from_numpy(black).to(dev)
+        first = torch.from_numpy(srng.random(hh) < 0.3).to(dev)
+        xs = np.arange(ww, dtype=np.float32)
+        seed = np.choose(srng.integers(0, 3, ww),
+                         [np.zeros(ww, np.float32), -xs, srng.integers(0, 12, ww)])
+        seed = torch.from_numpy(seed.astype(np.float32)).to(dev)
+        scan = dict(smooth_factor=0.9, d_first=d_first, n_planes=12, first_flags=first,
+                    init_prev=seed)
+        got = crs.row_scan(*planes, black, **scan)
+        want = smoothing.smoothed_argmin_from_inputs(*planes, black, **scan)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1b seeded != twin on planted planes {hh}x{ww}")
+    # a chain of row tiles, each seeded with the last row of the one before,
+    # equals one launch over the whole height
+    black = black_pixel_mask(rf)
+    scan = dict(smooth_factor=0.9, d_first=0, n_planes=D)
+    whole = crs.row_scan(*whole_k1, black, **scan)
+    seed, parts = torch.zeros(w, device=dev), []
+    never = torch.zeros(rows, dtype=torch.bool, device=dev)
+    for t in range(n_tiles):
+        sl = slice(t * rows, (t + 1) * rows)
+        first = never.clone()
+        first[0] = t == 0
+        parts.append(crs.row_scan(*(p[sl] for p in whole_k1), black[sl], **scan,
+                                  first_flags=first, init_prev=seed))
+        seed = parts[-1][-1]
+    if not torch.equal(torch.cat(parts), whole):
+        raise AssertionError("seeded K1b tile chain != one K1b launch over the image")
+    # the tiles the sharded matcher scans, against the twin: tile 1 seeded
+    # with tile 0's last row (the exact mode's), and tile 1 with its warm-up
+    # rows above it (32 at full size), local row 0 cut (the warm-up mode's)
+    wu = min(32, rows - hw)
+    cut = torch.zeros(wu + rows, dtype=torch.bool, device=dev)
+    cut[0] = True
+    for sl, flags in ((slice(rows, 2 * rows), never), (slice(rows - wu, 2 * rows), cut)):
+        kw = dict(scan, first_flags=flags, init_prev=parts[0][-1])
+        got = crs.row_scan(*(p[sl] for p in whole_k1), black[sl], **kw)
+        want = smoothing.smoothed_argmin_from_inputs(*(p[sl] for p in whole_k1), black[sl],
+                                                     **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1b seeded != twin on the {sl.stop - sl.start}-row tile "
+                                 f"{h}x{w} D={D}")
+    sl = slice(rows, 2 * rows)
+    tile_planes = [p[sl].contiguous() for p in whole_k1]
+    seeded = dict(scan, first_flags=never, init_prev=parts[0][-1])
+    out["K1b"] = (_median_ms(lambda: crs.row_scan(*tile_planes, black[sl], **seeded), torch,
+                             CALLS),
+                  _median_ms(lambda: smoothing.smoothed_argmin_from_inputs(
+                      *tile_planes, black[sl], **seeded), torch),
+                  scan_bound(rows, w))
+    print(f"[sharded] {smi}: K1b seeded bit-equal to its twin on {len(planted)} planted "
+          f"cases (W 33 to {crs.max_width()}, K = 1 to 4, random first flags and seed "
+          f"rows) and on the matcher's {rows}-row seeded tile and {wu + rows}-row warm-up "
+          f"tile of the {h}x{w} D={D} pair; {n_tiles} seeded tiles chained bit-equal to "
+          f"one launch over {h} rows; one {rows}-row seeded tile {out['K1b'][0]:.4f} ms "
+          f"(plain {out['K1b'][1]:.2f}, bound {out['K1b'][2][0]:.4f})", flush=True)
+    del whole_k1, tile_planes
+
+    # the exact sharded matcher: one K1 per (pair, tile), n_tiles K1b each
+    cfg = MatcherConfig(block_size=bs, max_disparity=D)
+    reset_counts()
+    disp = sharded_block_search_right(left, right, mesh, cfg, exact=True)
+    torch.cuda.synchronize()
+    want = expected(K1=data * n_tiles, K1b=data * n_tiles * n_tiles)
+    if counts() != want:
+        raise AssertionError(f"exact sharded matcher launches {counts()}, want {want}")
+    launches = counts()
+    single = torch.stack([block_search_right(left[i], right[i], cfg) for i in range(data)])
+    if disp.shape != (data, h, w) or not torch.equal(disp, single):
+        raise AssertionError("exact sharded matcher != block_search_right on "
+                             f"{(disp != single).float().mean().item():.4%} of pixels")
+    exact_ms, _ = _wall_ms(lambda: sharded_block_search_right(left, right, mesh, cfg,
+                                                              exact=True), torch)
+    single_ms, _ = _wall_ms(lambda: [block_search_right(left[i], right[i], cfg)
+                                     for i in range(data)], torch)
+    reset_counts()
+    warm = sharded_block_search_right(left, right, mesh, cfg, warmup=32)
+    torch.cuda.synchronize()
+    if counts() != expected(K1=data * n_tiles, K1b=data * n_tiles):
+        raise AssertionError(f"warm-up sharded matcher launches {counts()}")
+    agree = float((warm == single).double().mean())
+    if agree < 0.995:
+        raise AssertionError(f"warm-up sharded matcher agreement {agree:.4%} < 99.5%")
+    warm_ms, _ = _wall_ms(lambda: sharded_block_search_right(left, right, mesh, cfg,
+                                                             warmup=32), torch)
+    print(f"[sharded] {smi}: sharded_block_search_right on a data=2, tile=4 mesh over "
+          f"cuda:0 x 8, {data} pairs {h}x{w} D={D} block {bs}: exact=True bit-identical to "
+          f"block_search_right with {launches['K1']} K1 and {launches['K1b']} K1b launches "
+          f"(one K1 per pair and tile, {n_tiles} seeded K1b passes each), {exact_ms:.2f} ms; "
+          f"exact=False (warm-up 32) agreement {agree:.6f}, {data * n_tiles} K1 + "
+          f"{data * n_tiles} K1b, {warm_ms:.2f} ms; two block_search_right calls "
+          f"{single_ms:.2f} ms (host clock, median of 3 after a warm-up)", flush=True)
+
+    # sharded_evaldisp: one psum of the four counts
+    grng = np.random.default_rng(SEED + 16)
+    gt = single + torch.from_numpy(grng.normal(0, 2, single.shape).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(np.where(grng.random(single.shape) < 0.8, 255, 0)
+                            .astype(np.uint8)).to(dev)
+    got = sharded_evaldisp(single, gt, mask, mesh, bad_thresh=2.0, max_disp=float(D))
+    ref = evaldisp(single.reshape(-1, w), gt.reshape(-1, w), mask.reshape(-1, w),
+                   bad_thresh=2.0, max_disp=float(D))
+    d_bad = abs(float(got["bad_percent"]) - float(ref["bad_percent"]))
+    r_err = abs(float(got["avg_err"]) / float(ref["avg_err"]) - 1)
+    if not (d_bad <= 0.05 and r_err <= 1e-3):
+        raise AssertionError(f"sharded_evaldisp {got} vs evaldisp {ref}")
+    print(f"[sharded] sharded_evaldisp equals evaldisp of the batch: bad-2.0 "
+          f"{float(got['bad_percent']):.4f}% (|diff| {d_bad:.2e}), avg err "
+          f"{float(got['avg_err']):.4f} (rel diff {r_err:.2e})", flush=True)
+
+    # the distributed BAs on the pose stage's matches of the non-planar scene
+    srng = np.random.default_rng(SEED)
+    left_np, right_np, K, _, _, _, _ = nonplanar_scene(srng)
+    pcfg = PipelineConfig()
+    pcfg = pcfg.replace(ba=dataclasses.replace(pcfg.ba, num_points=64))   # 8 | 64
+    pair = StereoPair(left_np, right_np, K.astype(np.float32), K.astype(np.float32))
+    pose = estimate_pose(pair, pcfg, device=dev)
+    Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    kp_l, kp_r, wts = pose.keypoints_left, pose.keypoints_right, pose.weights
+    R_r, T_r = pose.pose_ransac[:3, :3], pose.pose_ransac[:3, 3]
+    xl, xr = geo.normalize_points(Kt, kp_l), geo.normalize_points(Kt, kp_r)
+    pts0 = xl * geo.triangulate_depths(xl, xr, R_r, T_r)[None, :]
+    bcfg = BundleAdjustmentConfig(max_iterations=10)
+    problems = []
+    for i in range(3):      # the RANSAC pose, perturbed as tests/test_sharding.py does
+        aa = geo.rotation_to_angle_axis(R_r) + 0.03 + 0.01 * i
+        problems.append((geo.angle_axis_to_rotation(aa), T_r + 0.05))
+    R0, T0 = problems[0]
+    res_d = distributed_bundle_adjust(kp_l, kp_r, Kt, Kt, R0, T0, pts0, mesh, weights=wts,
+                                      config=bcfg)
+    res_s = bundle_adjust(kp_l, kp_r, Kt, Kt, R0, T0, pts0, weights=wts, config=bcfg)
+    d_rot = float((res_d.rotation - res_s.rotation).abs().max())
+    d_t = float((res_d.translation - res_s.translation).abs().max())
+    c_d, c_s = float(res_d.final_cost), float(res_s.final_cost)
+    if not (d_rot <= 1e-3 and d_t <= 5e-3 and abs(c_d - c_s) <= 1e-3 + 0.05 * abs(c_s)):
+        raise AssertionError(f"distributed BA vs single: {d_rot}, {d_t}, {c_d} vs {c_s}")
+    B = len(problems)
+    stack = lambda t: torch.stack([t] * B)     # noqa: E731
+    poses, _, c0, cf, _ = distributed_bundle_adjust_batch(
+        stack(kp_l), stack(kp_r), Kt, Kt, torch.stack([p[0] for p in problems]),
+        torch.stack([p[1] for p in problems]), stack(pts0), mesh, weights=stack(wts),
+        config=bcfg)
+    d_batch = 0.0
+    for i, (Ri, Ti) in enumerate(problems):
+        res_i = distributed_bundle_adjust(kp_l, kp_r, Kt, Kt, Ri, Ti, pts0, mesh,
+                                          weights=wts, config=bcfg)
+        d_batch = max(d_batch, float((poses[i] - res_i.pose).abs().max()))
+        ci, fi = float(cf[i]), float(res_i.final_cost)
+        if not (abs(ci - fi) <= 1e-4 + 0.05 * abs(fi) and ci < 0.05 * float(c0[i])):
+            raise AssertionError(f"BA batch pair {i}: cost {ci} vs {fi}, initial {float(c0[i])}")
+    if d_batch > 2e-3:
+        raise AssertionError(f"BA batch poses {d_batch} from the per-pair solves")
+    print(f"[sharded] distributed_bundle_adjust on the non-planar scene's 64 BA matches "
+          f"({int(wts.sum())} real) vs bundle_adjust: rotation {d_rot:.2e}, translation "
+          f"{d_t:.2e}, final cost {c_d:.5f} vs {c_s:.5f}; the batch of {B} (one (B, 42) "
+          f"psum a step) within {d_batch:.2e} of per-pair solves, costs "
+          f"{float(c0.max()):.1f} -> {float(cf.max()):.5f} at most", flush=True)
+
+    # multi-view BA: single device vs the points over the mesh, and the fused cloud
+    mrng = np.random.default_rng(SEED)
+    K3, poses_gt, X_gt, obs = synthetic_sequence(mrng, M=4, n_grid=8)
+    X0 = X_gt + mrng.normal(0, 0.1, X_gt.shape)
+    poses0 = poses_gt.copy()
+    poses0[1:, 3:] += mrng.normal(0, 0.05, (3, 3))
+    margs = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+             for a in (obs, np.stack([K3] * 4), poses0, X0)]
+    mcfg = BundleAdjustmentConfig(loss="l2", max_iterations=15)
+    mv_single = ba_multiview.multiview_bundle_adjust(*margs, config=mcfg)
+    mv_mesh = make_mesh(data=4, tile=2, devices=[dev] * 8)
+    mv_dist = ba_multiview.distributed_multiview_bundle_adjust(*margs, mesh=mv_mesh,
+                                                               config=mcfg)
+    sp, sx = mv_single.poses.cpu().numpy(), mv_single.points.cpu().numpy()
+    dp, dx = mv_dist.poses.cpu().numpy(), mv_dist.points.cpu().numpy()
+    ap, ax, scale = scale_aligned(dp, dx, sx)
+    raw = (float(np.abs(dp - sp).max()), float(np.abs(dx - sx).max()))
+    aligned = (float(np.abs(ap - sp).max()), float(np.abs(ax - sx).max()))
+    d_rot_mv = float(np.abs(dp[:, :3] - sp[:, :3]).max())
+    fused = ba_multiview.fuse_point_cloud(mv_dist.points, mv_mesh)
+    # the gauge takes rounding, not a drift: the factor stays within 5e-3 of 1
+    if not (d_rot_mv <= 2e-3 and aligned[0] <= 2e-3 and aligned[1] <= 5e-3
+            and abs(scale - 1) <= 5e-3):
+        raise AssertionError(f"multi-view BA: rotations {d_rot_mv}, aligned {aligned}, "
+                             f"scale factor {scale}")
+    if not (float(mv_dist.final_cost) < 1e-3 * float(mv_dist.initial_cost)
+            and torch.equal(fused, mv_dist.points)):
+        raise AssertionError("multi-view BA did not converge or the fused cloud differs")
+    print(f"[sharded] distributed_multiview_bundle_adjust (4 cameras, 64 points over a "
+          f"data=4, tile=2 mesh) vs multiview_bundle_adjust: rotations {d_rot_mv:.2e}; "
+          f"translations / points {aligned[0]:.2e} / {aligned[1]:.2e} up to the scale "
+          f"gauge (factor {scale:.6f}, |1 - factor| <= 5e-3; raw {raw[0]:.2e} / "
+          f"{raw[1]:.2e}); cost "
+          f"{float(mv_dist.initial_cost):.1f} -> {float(mv_dist.final_cost):.2e}; "
+          f"fuse_point_cloud equal", flush=True)
+
+    # the process-group mesh: a world of one on NCCL, initialised from a file
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize("file://" + os.path.join(tmp, "store"), 1, 0, backend=backend)
+        try:
+            pg = multihost.global_mesh(data=1, tile=1)
+            got = sharded_block_search_right(left, right, pg, cfg, exact=True)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    if not torch.equal(got, disp):
+        raise AssertionError(f"the {backend} process-group mesh != the one-process mesh")
+    print(f"[sharded] {backend} process group of one (file:// store): the exact sharded "
+          f"matcher equals the one-process mesh's output bit for bit", flush=True)
+    print(f"[sharded] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out, launches
+
+
+def time_kernels() -> int:
+    """``python3 chip_smoke.py --time-kernels``: K1, K1b, K2 and K3 at shape
+    (b) on the integer-valued pair (CUDA events, median of REPEATS over
+    CALLS back-to-back calls; K3 one call a sample), as one JSON line. It
+    uses only the wrappers' whole-image arguments, so a copy of this file
+    beside an older checkout times that checkout's kernels: run two
+    versions in turns in one call (A, B, B, A) to compare them."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stereo_reconstruction_tpu_torch.config import MatcherConfig
+    from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
+    from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
+    from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
+    from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    left_np, right_np = _random_stereo(np.random.default_rng(SEED), 1128, 1408)
+    left = torch.from_numpy(left_np).to(dev, torch.float32)
+    right = torch.from_numpy(right_np).to(dev, torch.float32)
+    args = (left, right, 17, 0, 200)
+    planes = ccv.matcher_inputs(*args)
+    black = black_pixel_mask(right)
+    cfg = MatcherConfig()
+    ms = {
+        "K1": _median_ms(lambda: ccv.matcher_inputs(*args), torch, CALLS),
+        "K1b": _median_ms(lambda: crs.row_scan(*planes, black, n_planes=200), torch, CALLS),
+        "K2": _median_ms(lambda: ccv.cost_volume(*args), torch, CALLS),
+        "K3": _median_ms(lambda: cbs.block_search_fused(left, right, cfg), torch),
+    }
+    print(json.dumps({"card": smi, "checkout": os.path.dirname(os.path.abspath(__file__)),
+                      "shape": "(b) 1128x1408, D=200, block 17", "ms": ms}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1164,6 +1503,7 @@ def main() -> int:
     from stereo_reconstruction_tpu_torch.perceptual import scan as pscan
     from stereo_reconstruction_tpu_torch.pipeline import estimate_pose, run_pair
     from stereo_reconstruction_tpu_torch.rectify.rectifier import rectify_pair
+    from stereo_reconstruction_tpu_torch.utils.roofline import matcher_bound, scan_bound
 
     dev = torch.device("cuda", 0)
 
@@ -1221,7 +1561,7 @@ def main() -> int:
         k_ms = _median_ms(lambda: ccv.matcher_inputs(*args), torch, CALLS)
         p_ms = _median_ms(lambda: ccv.matcher_inputs_plain(*args), torch)
         times["K1", key] = (k_ms, p_ms)
-        bounds["K1", key] = _matcher_bound(s, out_planes=5)
+        bounds["K1", key] = matcher_bound(s, out_planes=5)
         print(f"[kernel] shape ({key}) {s}: 5 planes bit-equal; "
               f"K1 {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPEATS}); "
               f"bound {bounds['K1', key][0]:.4f} ms", flush=True)
@@ -1238,7 +1578,7 @@ def main() -> int:
         p_ms = _median_ms(lambda: smoothing.smoothed_argmin_from_inputs(
             *planes, black, **scan), torch)
         times["K1b", key] = (k_ms, p_ms)
-        bounds["K1b", key] = _scan_bound(s["h"], s["w"])
+        bounds["K1b", key] = scan_bound(s["h"], s["w"])
         print(f"[kernel] shape ({key}): K1b bit-equal to the plain scan on K1's planes; "
               f"K1b {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPEATS}); "
               f"bound {bounds['K1b', key][0]:.4f} ms", flush=True)
@@ -1253,7 +1593,7 @@ def main() -> int:
         k_ms = _median_ms(lambda: ccv.cost_volume(*args), torch, CALLS)
         p_ms = _median_ms(lambda: ccv.cost_volume_right_ssd(*args), torch)
         times["K2", key] = (k_ms, p_ms)
-        bounds["K2", key] = _matcher_bound(s, out_planes=s["max_d"] - s["min_d"])
+        bounds["K2", key] = matcher_bound(s, out_planes=s["max_d"] - s["min_d"])
         print(f"[kernel] shape ({key}): volume bit-equal, +inf pattern included; "
               f"K2 {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPEATS}); "
               f"bound {bounds['K2', key][0]:.4f} ms; K2 / K1 "
@@ -1469,7 +1809,7 @@ def main() -> int:
     if agree_exact < 0.98:
         raise AssertionError(f"K3 vs exact route agreement {agree_exact:.4%} < 98%")
     k3_ms = _median_ms(lambda: cbs.block_search_fused(rect.left, rect.right, cfg), torch)
-    bounds["K3", "canvas"] = _matcher_bound(
+    bounds["K3", "canvas"] = matcher_bound(
         dict(h=rect.canvas[0], w=rect.canvas[1], wl_extra=0, bs=17, min_d=0, max_d=200),
         out_planes=1)
     k3_plain_ms = _median_ms(
@@ -1575,6 +1915,9 @@ def main() -> int:
     k4 = perceptual_phase(torch, dev, smi, counts, reset_counts, expected)
     launches["K4"], max_err["K4"], times["K4", "scene"], bounds["K4", "scene"] = k4
 
+    # 15. the multi-device layer
+    sharded_phase(torch, dev, smi, counts, reset_counts, expected)
+
     print(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     csrc = "stereo_reconstruction_tpu_torch/csrc/"
     kernels = [
@@ -1612,4 +1955,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(time_kernels() if sys.argv[1:] == ["--time-kernels"] else main())

@@ -185,7 +185,7 @@ block_search_costs_kernel(const float2* __restrict__ left_rg,   // (H, WLp)
                           int* __restrict__ top_i,              // (3, H, W)
                           int H, int W, int WL, int WLp, int min_d, int D) {
   TopSink sink{cost, top_v, top_i, H, W, D};
-  window_cost_tile<HBS>(left_rg, left_b, right, H, W, WL, WLp, min_d, D, sink);
+  window_cost_tile<HBS>(left_rg, left_b, right, H, W, WL, WLp, min_d, D, 0, H, sink);
 }
 
 // A column's two smallest up-discounted costs, (m1, a1) <= (m2, a2) in

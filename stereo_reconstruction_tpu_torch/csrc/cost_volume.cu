@@ -10,14 +10,14 @@ struct Launch {
   const float* left_b;
   const float* right;
   float* cost;
-  int H, W, WL, WLp, min_d, D;
+  int H, W, WL, WLp, min_d, D, row0, H_total;
   cudaStream_t stream;
 
   template <int HBS>
   cudaError_t run() {
     return stpu::launch_tiles<HBS>(stpu::cost_volume_kernel<HBS>, H, W, stream,
                                    left_rg, left_b, right, cost, H, W, WL, WLp,
-                                   min_d, D);
+                                   min_d, D, row0, H_total);
   }
 };
 
@@ -29,16 +29,17 @@ struct Launch {
 // (H, WL, 3), right (H, W, 3), cost (D, H, W) out (16-byte aligned),
 // scratch 3 * H * WLp floats (8-byte aligned) with WLp >= max(WL, W + min_d
 // + D). hbs must lie in [0, stpu_matcher_inputs_max_hbs()] and 3 * H * WLp
-// below 2^31.
+// below 2^31. The images are rows row0 .. row0 + H - 1 of an image H_total
+// rows tall (row0 = 0, H_total = H for a whole image).
 extern "C" int stpu_cost_volume(const float* left, const float* right, float* cost,
                                 float* scratch, int H, int W, int WL, int WLp, int hbs,
-                                int min_d, int D, void* stream) {
-  if (H <= 0 || W <= 0 || WL <= 0 || min_d < 0 || D < 0 ||
+                                int min_d, int D, int row0, int H_total, void* stream) {
+  if (H <= 0 || W <= 0 || WL <= 0 || min_d < 0 || D < 0 || H_total <= 0 ||
       !stpu::wc::layout_fits(H, W, WL, WLp, min_d, D) || hbs < 0 ||
       hbs > stpu::wc::kMaxHbs)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  Launch l{nullptr, nullptr, right, cost, H, W, WL, WLp, min_d, D, s};
+  Launch l{nullptr, nullptr, right, cost, H, W, WL, WLp, min_d, D, row0, H_total, s};
   float2* rg;
   float* b;
   const cudaError_t e = stpu::launch_left_layout(left, scratch, H, WL, WLp, s, &rg, &b);

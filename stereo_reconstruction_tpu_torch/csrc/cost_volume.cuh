@@ -81,9 +81,11 @@ cost_volume_kernel(const float2* __restrict__ left_rg,   // (H, WLp)
                    const float* __restrict__ left_b,     // (H, WLp)
                    const float* __restrict__ right,      // (H, W, 3)
                    float* __restrict__ cost,             // (D, H, W)
-                   int H, int W, int WL, int WLp, int min_d, int D) {
+                   int H, int W, int WL, int WLp, int min_d, int D, int row0,
+                   int H_total) {
   StoreSink sink{cost, H, W, D};
-  window_cost_tile<HBS>(left_rg, left_b, right, H, W, WL, WLp, min_d, D, sink);
+  window_cost_tile<HBS>(left_rg, left_b, right, H, W, WL, WLp, min_d, D, row0, H_total,
+                        sink);
 }
 
 }  // namespace stpu

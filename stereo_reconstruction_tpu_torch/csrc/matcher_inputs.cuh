@@ -117,9 +117,11 @@ matcher_inputs_kernel(const float2* __restrict__ left_rg,   // (H, WLp)
                       float* __restrict__ m0, int* __restrict__ a0,
                       float* __restrict__ cz, float* __restrict__ du,
                       float* __restrict__ dl,
-                      int H, int W, int WL, int WLp, int min_d, int D) {
+                      int H, int W, int WL, int WLp, int min_d, int D, int row0,
+                      int H_total) {
   FoldSink sink{m0, a0, cz, du, dl, W, min_d};
-  window_cost_tile<HBS>(left_rg, left_b, right, H, W, WL, WLp, min_d, D, sink);
+  window_cost_tile<HBS>(left_rg, left_b, right, H, W, WL, WLp, min_d, D, row0, H_total,
+                        sink);
 }
 
 }  // namespace stpu

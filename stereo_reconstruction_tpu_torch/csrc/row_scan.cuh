@@ -7,7 +7,11 @@
 // (BlockSearch.cpp:160-171) row by row, exactly:
 //
 //   * the up neighbour is the previous row's final disparity, so rows are
-//     sequential; row 0 has none;
+//     sequential; row 0 has none. Seeded rows (the sharded matcher's row
+//     tiles, JAX's first_flags / init_prev): a row whose `first` flag is
+//     set has no up neighbour, and row 0's up neighbour is the row
+//     `init_prev` when its flag is clear. Null pointers mean row 0 alone
+//     is first and the seed is 0;
 //   * inside a row the left neighbour acts through a 3-state automaton
 //     (left chose none of the special values / 0 / the sentinel -x). Each
 //     pixel's disparity under each of the 3 input cases (d_none, d_zero,
@@ -90,12 +94,19 @@ __device__ __forceinline__ unsigned case_of(float d, float sentinel) {
 
 }  // namespace k1b
 
-template <int K>
+// kSeeded: the instance that reads `first` / `init_prev` (either may still
+// be null). The whole-image scan runs the other, which is the scan as it
+// was before seeded rows: reading a per-row flag cost it 2.7% at 1128x1408
+// (2.479 / 2.469 against 2.412 / 2.406 ms, NVIDIA H100 80GB HBM3, 700 W,
+// chip_smoke.py --time-kernels).
+template <int K, bool kSeeded>
 __global__ void __launch_bounds__(k1b::kMaxThreads)
 row_scan_kernel(const float* __restrict__ m0, const int* __restrict__ a0,
                 const float* __restrict__ cz, const float* __restrict__ du,
                 const float* __restrict__ dl,
                 const unsigned char* __restrict__ black,
+                const unsigned char* __restrict__ first,    // (H,) or null
+                const float* __restrict__ init_prev,        // (W,) or null
                 float* __restrict__ out, int H, int W, float sf, int d_first,
                 int D) {
   using k1b::case_of;
@@ -123,8 +134,10 @@ row_scan_kernel(const float* __restrict__ m0, const int* __restrict__ a0,
   float n_m0[K] = {}, n_cz[K] = {}, n_du[K] = {}, n_dl[K] = {};
   int n_a0[K] = {};
   bool n_blk[K] = {};
+  bool n_up = false;                      // the row has an up neighbour
   auto load = [&](int y) {
     const size_t row = (size_t)y * W;
+    if constexpr (kSeeded) n_up = first != nullptr ? __ldg(first + y) == 0 : y > 0;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int x = xk + k;
@@ -144,12 +157,15 @@ row_scan_kernel(const float* __restrict__ m0, const int* __restrict__ a0,
   const int i_zero = -d_first;
   float prev[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) prev[k] = 0.0f;
+  for (int k = 0; k < K; ++k)
+    prev[k] = kSeeded && init_prev != nullptr && xk + k < W ? __ldg(init_prev + xk + k)
+                                                             : 0.0f;
 
   for (int y = 0; y < H; ++y) {
     float c_m0[K], c_cz[K], c_du[K], c_dl[K];
     int c_a0[K];
     bool c_blk[K];
+    const bool has_up = kSeeded ? n_up : y > 0;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       c_m0[k] = n_m0[k];
@@ -174,7 +190,7 @@ row_scan_kernel(const float* __restrict__ m0, const int* __restrict__ a0,
         const bool up_zero = p == 0.0f;
         const int up_idx = up_zero ? i_zero : min(max(x - d_first, 0), D - 1);
         float v_u = kInf;
-        if (y > 0) {
+        if (has_up) {
           const float up_val = up_zero ? c_cz[k] : (p == sentinel ? c_du[k] : kInf);
           v_u = __fmul_rn(up_val, sf);
         }

@@ -9,6 +9,16 @@
 //               [0, H-1) x [0, W-1)) * (1 / area),
 //   +inf where area <= 0 or x + d + min(W-1-x, hbs) >= WL,
 //
+// Global rows: the images may be a row tile of a taller image, local row 0
+// being global row row0 of H_total rows (the sharded matcher's
+// halo-extended tiles; the TPU kernel's geom input [row0, H_total]). The
+// window is then clipped to global rows [0, H_total - 1), the area counts
+// global rows, and a row outside [0, H_total) has area 0. Rows outside the
+// local [0, H) read as zero, so where row0 > 0 (or the tile ends above the
+// image bottom) the first (last) 2hbs output rows see that padding as
+// image and are the caller's to drop. A whole image is row0 = 0,
+// H_total = H: the same code, the same arithmetic.
+//
 // and hands each thread's 8 window sums of plane j to a sink, which folds
 // them (K1), stores the costs (K2) or stores them and keeps each pixel's
 // three smallest (K3's cost pass). Planes j >= j_end have no candidate
@@ -129,7 +139,8 @@ __device__ __forceinline__ void window_cost_tile(const float2* __restrict__ left
                                                  const float* __restrict__ left_b,
                                                  const float* __restrict__ right,
                                                  int H, int W, int WL, int WLp,
-                                                 int min_d, int D, Sink& sink) {
+                                                 int min_d, int D, int row0, int H_total,
+                                                 Sink& sink) {
   using wc::kP;
   using wc::kSegRows;
   using wc::kSegs;
@@ -152,12 +163,15 @@ __device__ __forceinline__ void window_cost_tile(const float2* __restrict__ left
   const int r1 = tid / T::BC;
   const int gx1 = x0 - HBS + c1;
   const bool col_in = a1 && gx1 >= 0 && gx1 < W - 1;
-  unsigned row_in = 0;                   // bit k: band row of slot k inside [0, H-1)
+  // bit k: band row of slot k inside the local [0, H) and the global
+  // [0, H_total - 1)
+  unsigned row_in = 0;
 #pragma unroll
   for (int k = 0; k < T::NE; ++k) {
     const int r = r1 + T::TC * k;
     const int gy = y0 - HBS + r;
-    row_in |= (unsigned)(col_in && r < T::BR && gy >= 0 && gy < H - 1) << k;
+    row_in |= (unsigned)(col_in && r < T::BR && gy >= 0 && gy < H && row0 + gy >= 0 &&
+                         row0 + gy < H_total - 1) << k;
   }
   for (int i = tid; i < T::BR * T::BC; i += kThreads) {
     const int gy = y0 - HBS + i / T::BC;
@@ -175,9 +189,11 @@ __device__ __forceinline__ void window_cost_tile(const float2* __restrict__ left
   }
   __syncthreads();
   const int lbase = (y0 - HBS + r1) * WLp + gx1;  // left offset of slot 0
-  // the whole band inside [0, H-1) x [0, W-1): no dsq is masked
+  // the whole band inside the local rows, the global [0, H_total - 1) and
+  // [0, W-1): no dsq is masked
   const bool interior = x0 >= HBS && x0 + kTX + HBS <= W - 1 && y0 >= HBS &&
-                        y0 + kTY + HBS <= H - 1;
+                        y0 + kTY + HBS <= H && row0 + y0 >= HBS &&
+                        row0 + y0 + kTY + HBS <= H_total - 1;
 
   // phase A2: band column c2, output rows seg * kSegRows ...
   const bool a2 = tid < T::BC * kSegs;
@@ -193,12 +209,13 @@ __device__ __forceinline__ void window_cost_tile(const float2* __restrict__ left
   px.y = y0 + ob;
   px.xb = x0 + kP * gb;
   px.row_out = px.y < H;
-  // a window is empty only if the image is one pixel tall or wide (or hbs
-  // is 0); then every plane is +inf
-  const bool windows = HBS > 0 && H > 1 && W > 1;
+  // a window is empty only if the image is one pixel tall or wide, hbs is
+  // 0 or the row lies outside the image; then every plane is +inf
+  const int yg = row0 + px.y;
+  const bool windows = HBS > 0 && H_total > 1 && W > 1 && yg >= 0 && yg < H_total;
   {
-    const int up = min(px.y, HBS);
-    const int down = min(H - 1 - px.y, HBS);
+    const int up = max(min(yg, HBS), 0);
+    const int down = max(min(H_total - 1 - yg, HBS), 0);
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
       const int x = px.xb + p;

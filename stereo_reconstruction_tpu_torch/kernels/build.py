@@ -101,19 +101,19 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path()))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.stpu_matcher_inputs.argtypes = [p, p, p, p, p, p, p, p,
-                                            i, i, i, i, i, i, i, p]
+                                            i, i, i, i, i, i, i, i, i, p]
         lib.stpu_matcher_inputs.restype = i
         lib.stpu_matcher_inputs_max_hbs.argtypes = []
         lib.stpu_matcher_inputs_max_hbs.restype = i
         lib.stpu_row_scan_max_width.argtypes = []
         lib.stpu_row_scan_max_width.restype = i
-        lib.stpu_cost_volume.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.stpu_cost_volume.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.stpu_cost_volume.restype = i
         lib.stpu_block_search.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
                                           i, i, ctypes.c_float, i, i, p]
         lib.stpu_block_search.restype = i
-        lib.stpu_row_scan.argtypes = [p, p, p, p, p, p, p, i, i, ctypes.c_float,
-                                      i, i, p]
+        lib.stpu_row_scan.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
+                                      ctypes.c_float, i, i, p]
         lib.stpu_row_scan.restype = i
         lib.stpu_perceptual_scan.argtypes = [p, p, p, i, i, i, i, p]
         lib.stpu_perceptual_scan.restype = i

@@ -18,6 +18,12 @@ package's volume bit for bit on the CPU.
 
 Cost layout is ``(D, H, W)`` float32, ``+inf`` = invalid candidate; every
 volume is built ``D_CHUNK`` planes at a time.
+
+``cost_volume_right_ssd(row_offset=, total_height=)`` takes the images as
+a row tile of a taller image (the sharded matcher's halo-extended tiles,
+``parallel/sharded.py``): the window is clipped to global rows and the
+area counts them, so every row the tile holds with its window support
+equals the whole image's, as in JAX (``ops/cost_volume.py:117-148``).
 """
 
 from __future__ import annotations
@@ -39,6 +45,26 @@ def right_window_geometry(h: int, w: int, block_size: int, device=None):
     right = (w - 1 - xs).clamp(max=hbs)
     area = ((left + right)[None, :] * (up + down)[:, None]).to(torch.float32)
     return left, right, up, down, area
+
+
+def global_row_geometry(h: int, w: int, block_size: int, row_offset: int,
+                        total_height: int, device=None):
+    """``right_window_geometry`` for local rows ``row_offset .. row_offset +
+    h - 1`` of an image ``total_height`` rows tall: (right extents, area,
+    row_valid). The area counts global rows and is 0 on rows outside the
+    image; ``row_valid`` marks the rows inside [0, total_height - 1), the
+    rows a window may hold."""
+    hbs = (block_size - 1) // 2
+    ys = row_offset + torch.arange(h, device=device)
+    xs = torch.arange(w, device=device)
+    up = ys.clamp(max=hbs).clamp(min=0)
+    down = (total_height - 1 - ys).clamp(max=hbs).clamp(min=0)
+    in_img = (ys >= 0) & (ys < total_height)
+    left = xs.clamp(max=hbs)
+    right = (w - 1 - xs).clamp(max=hbs)
+    area = ((left + right)[None, :] * torch.where(in_img, up + down, 0)[:, None]
+            ).to(torch.float32)
+    return right, area, (ys >= 0) & (ys < total_height - 1)
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -85,17 +111,21 @@ def _sliding_sum_in_order(x: torch.Tensor, size: int, before: int,
     return out
 
 
-def clipped_window_sum(plane: torch.Tensor, hbs: int,
-                       in_order: bool = False) -> torch.Tensor:
+def clipped_window_sum(plane: torch.Tensor, hbs: int, in_order: bool = False,
+                       row_valid=None) -> torch.Tensor:
     """Sum of ``plane`` (..., H, W) over [y-hbs, y+hbs) x [x-hbs, x+hbs)
     clipped to [0, H-1) x [0, W-1), for every pixel; rows first, then
     columns. ``in_order`` adds each window's terms in order (for
-    non-integer planes, whose sums depend on it)."""
+    non-integer planes, whose sums depend on it). ``row_valid`` (H,) bool
+    replaces the rows [0, H-1) (a row tile's global rows)."""
     h, w = plane.shape[-2:]
     if hbs <= 0:
         return torch.zeros_like(plane)
     masked = plane.clone()
-    masked[..., h - 1, :] = 0
+    if row_valid is None:
+        masked[..., h - 1, :] = 0
+    else:
+        masked[..., ~row_valid, :] = 0
     masked[..., :, w - 1] = 0
     sliding = _sliding_sum_in_order if in_order else _sliding_sum
     out = sliding(masked, 2 * hbs, hbs, plane.ndim - 2)
@@ -110,12 +140,14 @@ def _full_window_sum(plane: torch.Tensor, block_size: int) -> torch.Tensor:
     return _sliding_sum(out, block_size, hbs, plane.ndim - 1)
 
 
-def _right_volume(left, right, block_size, min_disparity, max_disparity, plane_costs):
+def _right_volume(left, right, block_size, min_disparity, max_disparity, plane_costs,
+                  geometry=None):
     """The frame every Right-variant volume shares: ``plane_costs(ds, n)``
     returns the (len(ds), H, W) costs of the disparities ``ds`` (``n`` is
     the clipped window area, at least 1); they are kept where the
     candidate ``x + d + right < W_l`` exists (the break at
-    BlockSearch.cpp:148-149) and the window area is positive, else +inf."""
+    BlockSearch.cpp:148-149) and the window area is positive, else +inf.
+    ``geometry`` (right extents, area) replaces the whole image's."""
     if min_disparity < 0:
         raise ValueError("min_disparity < 0 is not supported")
     h, w = right.shape[:2]
@@ -124,7 +156,10 @@ def _right_volume(left, right, block_size, min_disparity, max_disparity, plane_c
     w_l = left.shape[1]
     D = max_disparity - min_disparity
     device = right.device
-    _, right_ext, _, _, area = right_window_geometry(h, w, block_size, device)
+    if geometry is None:
+        _, right_ext, _, _, area = right_window_geometry(h, w, block_size, device)
+    else:
+        right_ext, area = geometry
     pos_area = area > 0
     n = area.clamp(min=1.0)
     reach = torch.arange(w, device=device) + right_ext      # (W,)
@@ -151,25 +186,42 @@ def cost_volume_right_ssd(
     block_size: int = 17,
     min_disparity: int = 0,
     max_disparity: int = 200,
+    row_offset=None,       # global index of local row 0
+    total_height=None,     # global image height
 ) -> torch.Tensor:
     """Right-variant SSD cost volume, shape (D, H, W), +inf = invalid.
 
     Plane ``j`` holds disparity ``d = min_disparity + j``: cost
     ``sqrt(window SSD) * (1 / area)`` (BlockSearch.cpp:158).
+
+    ``row_offset``/``total_height`` take the images as rows ``row_offset
+    ..`` of an image ``total_height`` rows tall (rows outside the image
+    must hold zeros): window clipping and area use global rows, so a
+    halo-extended tile's rows equal the whole image's. Rows outside the
+    local images read as zero: where ``row_offset > 0`` (or the tile ends
+    above the image bottom) the first (last) ``2 * hbs`` rows see that
+    padding as image, and the caller drops them.
     """
     left, right = left.to(torch.float32), right.to(torch.float32)
-    w = right.shape[1]
+    h, w = right.shape[:2]
     hbs = (block_size - 1) // 2
     left_p = _padded_left(left, w, max_disparity)
+    geometry = row_valid = None
+    if row_offset is not None:
+        total = h if total_height is None else int(total_height)
+        right_ext, area, row_valid = global_row_geometry(
+            h, w, block_size, int(row_offset), total, right.device)
+        geometry = (right_ext, area)
 
     def plane_costs(ds, n):
         shifted = torch.stack([left_p[:, d:d + w] for d in ds])   # (Dc, H, W, 3)
         sq = (shifted - right) ** 2
-        win = clipped_window_sum(sq[..., 0] + sq[..., 1] + sq[..., 2], hbs)
+        win = clipped_window_sum(sq[..., 0] + sq[..., 1] + sq[..., 2], hbs,
+                                 row_valid=row_valid)
         return sqrt_rn(win.clamp(min=0.0)) * (1.0 / n)
 
     return _right_volume(left, right, block_size, min_disparity, max_disparity,
-                         plane_costs)
+                         plane_costs, geometry)
 
 
 def cost_volume_right_sad(

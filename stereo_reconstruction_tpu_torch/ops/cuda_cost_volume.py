@@ -26,6 +26,13 @@ min_d + D)``, indexed in 32 bits: a call with 3·H·WLp at or past 2^31 - 1
 raises ``ValueError`` before any launch (``check_limits``; the library
 refuses it as well).
 
+Both take ``row_offset`` / ``total_height`` (the TPU kernel's ``geom``
+input ``[row0, H_total]``): the images are then a row tile of an image
+``total_height`` rows tall, whose local row 0 is global row ``row_offset``
+(the sharded matcher's halo-extended tiles, ``parallel/sharded.py``). A
+whole image is ``row_offset = 0, total_height = H``, the default, and runs
+the same kernel code. ``check_limits`` applies to the tile's own shape.
+
 A wrapper takes the plain twin only for CPU tensors. A CUDA tensor
 launches the kernel or raises; nothing falls back. ``min_disparity < 0``
 raises ``ValueError`` on every device.
@@ -45,22 +52,36 @@ VOLUME_LAUNCHES = 0
 
 
 def matcher_inputs_plain(left, right, block_size: int = 17,
-                         min_disparity: int = 0, max_disparity: int = 200):
+                         min_disparity: int = 0, max_disparity: int = 200,
+                         row_offset=None, total_height=None):
     """(m0, a0, c_zero, diag_up, diag_lf) from the full plain cost volume."""
     cost = cost_volume_right_ssd(left, right, block_size, min_disparity,
-                                 max_disparity)
+                                 max_disparity, row_offset, total_height)
     return volume_reductions(cost, min_disparity)
 
 
+def _global_rows(right, row_offset, total_height):
+    """The kernels' (row0, H_total): the whole image when not given."""
+    h = right.shape[0]
+    row0 = 0 if row_offset is None else int(row_offset)
+    total = h if total_height is None else int(total_height)
+    if total < 1:
+        raise ValueError(f"total_height must be >= 1, got {total}")
+    return row0, total
+
+
 def matcher_inputs(left, right, block_size: int = 17,
-                   min_disparity: int = 0, max_disparity: int = 200):
+                   min_disparity: int = 0, max_disparity: int = 200,
+                   row_offset=None, total_height=None):
     """The five smoothing-scan inputs for left (H, W_l, 3) and right
     (H, W, 3) images: the plain twin for CPU tensors, K1 for CUDA tensors.
-    uint8 images are cast to float32."""
+    uint8 images are cast to float32. ``row_offset`` / ``total_height``:
+    global rows (module docstring)."""
     global LAUNCHES
     if left.device.type == "cpu" and right.device.type == "cpu":
         return matcher_inputs_plain(left, right, block_size, min_disparity,
-                                    max_disparity)
+                                    max_disparity, row_offset, total_height)
+    row0, total = _global_rows(right, row_offset, total_height)
     left, right, D = cuda_images(left, right, min_disparity, max_disparity, "K1")
     lib, hbs, wl_pad, scratch = window_cost_setup(left, right, block_size,
                                                   min_disparity, D, "K1")
@@ -76,7 +97,7 @@ def matcher_inputs(left, right, block_size: int = 17,
         rc = lib.stpu_matcher_inputs(
             left.data_ptr(), right.data_ptr(), m0.data_ptr(), a0.data_ptr(),
             cz.data_ptr(), du.data_ptr(), dl.data_ptr(), scratch.data_ptr(),
-            h, w, left.shape[1], wl_pad, hbs, min_disparity, D, stream)
+            h, w, left.shape[1], wl_pad, hbs, min_disparity, D, row0, total, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -84,16 +105,18 @@ def matcher_inputs(left, right, block_size: int = 17,
 
 
 def cost_volume(left, right, block_size: int = 17, min_disparity: int = 0,
-                max_disparity: int = 200):
+                max_disparity: int = 200, row_offset=None, total_height=None):
     """The (D, H, W) float32 Right-SSD cost volume (+inf = invalid) of left
     (H, W_l, 3) and right (H, W, 3) images: the plain twin
     ``cost_volume_right_ssd`` for CPU tensors (any block size), K2 for CUDA
     tensors (block sizes up to 17, as K1 and the TPU kernel; ``ValueError``
-    beyond; no caller in the port passes more)."""
+    beyond; no caller in the port passes more). ``row_offset`` /
+    ``total_height``: global rows (module docstring)."""
     global VOLUME_LAUNCHES
     if left.device.type == "cpu" and right.device.type == "cpu":
         return cost_volume_right_ssd(left, right, block_size, min_disparity,
-                                     max_disparity)
+                                     max_disparity, row_offset, total_height)
+    row0, total = _global_rows(right, row_offset, total_height)
     left, right, D = cuda_images(left, right, min_disparity, max_disparity, "K2")
     lib, hbs, wl_pad, scratch = window_cost_setup(left, right, block_size,
                                                   min_disparity, D, "K2")
@@ -103,7 +126,7 @@ def cost_volume(left, right, block_size: int = 17, min_disparity: int = 0,
     with torch.cuda.device(right.device):
         rc = lib.stpu_cost_volume(
             left.data_ptr(), right.data_ptr(), cost.data_ptr(), scratch.data_ptr(),
-            h, w, left.shape[1], wl_pad, hbs, min_disparity, D, stream)
+            h, w, left.shape[1], wl_pad, hbs, min_disparity, D, row0, total, stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc}")
     VOLUME_LAUNCHES += 1

@@ -65,10 +65,17 @@ def smoothed_argmin_from_inputs(
     smooth_factor: float = 0.9,
     d_first: int = 0,
     n_planes: int = 1,
+    first_flags: Optional[torch.Tensor] = None,   # (H,) bool
+    init_prev: Optional[torch.Tensor] = None,     # (W,) float32
 ) -> torch.Tensor:
     """The exact smoothing row scan from the five planes; (H, W) float32
     disparity with the reference sentinels (black -> 0, no candidate ->
-    -x)."""
+    -x).
+
+    ``first_flags`` marks the rows with no up neighbour (default: row 0
+    alone), and ``init_prev`` is row 0's up neighbour where its flag is
+    clear (default 0): a row tile continues the recurrence from the final
+    row of the tile above this way (the sharded matcher's wavefront)."""
     h, w = m0.shape
     device = m0.device
     D = n_planes
@@ -96,14 +103,17 @@ def smoothed_argmin_from_inputs(
         return torch.where(take2, v2, v1), torch.where(take2, i2, i1)
 
     out = torch.empty((h, w), dtype=f32, device=device)
-    prev = torch.zeros((w,), dtype=f32, device=device)
+    prev = (torch.zeros((w,), dtype=f32, device=device) if init_prev is None
+            else init_prev.to(device=device, dtype=f32))
+    firsts = ([True] + [False] * (h - 1) if first_flags is None
+              else [bool(f) for f in first_flags.tolist()])
     for y in range(h):
         m0r, a0r, c0r = m0[y], a0[y].to(torch.int64), c_zero[y]
-        # up-neighbour candidate (exact: prev is the final row above);
-        # row 0 has no up neighbour
+        # up-neighbour candidate (exact: prev is the final row above); a
+        # first row has no up neighbour
         up_zero = prev == 0.0
         up_idx = torch.where(up_zero, i_zero, up_sent_idx)
-        if y == 0:
+        if firsts[y]:
             v_u = inf_row
         else:
             up_sent = prev == sentinel

@@ -1,7 +1,8 @@
 """Disparity post-processing, plain PyTorch.
 
 Port of ``stereo_reconstruction_tpu/recon/disparity.py`` (reference
-``removeDisparityOutliers`` / ``convertDisparityToDepth``,
+``removeDisparityOutliers`` / ``scaleDisparityMap`` /
+``convertDisparityToDepth``,
 ``src/Reconstruction/reconstruction.cpp:5-43``). Invalid depth is -inf
 (the reference's MINF).
 
@@ -58,6 +59,11 @@ def remove_disparity_outliers(
     blurred = box_blur(disparity, kernel_size)
     outlier = (disparity > thr_front * blurred) | (disparity < thr_back * blurred)
     return torch.where(outlier, blurred, disparity)
+
+
+def scale_disparity(disparity: torch.Tensor, factor) -> torch.Tensor:
+    """The disparity in float32 times ``factor`` (reconstruction.cpp:21-27)."""
+    return disparity.to(torch.float32) * factor
 
 
 def disparity_to_depth(

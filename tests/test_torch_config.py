@@ -74,7 +74,11 @@ UNCALIBRATED_MODULES = ("ops.binary_features", "ops.linear_search", "pose.fundam
                         "rectify.epilines", "pipeline_uncalibrated")
 PERCEPTUAL_MODULES = ("perceptual", "perceptual.vgg", "perceptual.cost", "perceptual.scan",
                       "perceptual.notebook_oracle")
-REQUIRED_MODULES = POSE_MODULES + ENTRY_MODULES + UNCALIBRATED_MODULES + PERCEPTUAL_MODULES
+PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.sharded", "parallel.ba_dist",
+                    "parallel.ba_multiview", "parallel.multihost")
+AUX_MODULES = ("recon", "recon.simple_mesh", "utils.debug", "utils.roofline")
+REQUIRED_MODULES = (POSE_MODULES + ENTRY_MODULES + UNCALIBRATED_MODULES + PERCEPTUAL_MODULES
+                    + PARALLEL_MODULES + AUX_MODULES)
 
 
 def _no_jax_env():
@@ -83,8 +87,10 @@ def _no_jax_env():
 
 def test_port_imports_no_jax():
     """Every module of the port, the pose stage's, the entry points', the
-    uncalibrated path's and the perceptual matcher's included, imports
-    without pulling in jax or the JAX package (whose __init__ imports jax).
+    uncalibrated path's, the perceptual matcher's, the multi-device layer's
+    (``parallel/``) and the auxiliary ones (``recon/simple_mesh``,
+    ``utils/debug``, ``utils/roofline``) included, imports without pulling
+    in jax or the JAX package (whose __init__ imports jax).
     ``__main__`` runs the CLI when imported, so it is checked by
     ``test_module_entry_point_help``."""
     code = (

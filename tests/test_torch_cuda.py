@@ -22,7 +22,13 @@ meets its gates on the card for every detector. K4 (the perceptual
 matcher's windowed smoother) equals its plain twin bit for bit on planted
 volumes, refuses what it does not take with a ``ValueError``, and the
 windowed search on the card agrees with the port on the CPU (narrow VGG
-widths: 100% within 2 px, >= 98% exact) with one K4 launch.
+widths: 100% within 2 px, >= 98% exact) with one K4 launch. K1 and K2 in
+global-row mode (a halo-extended row tile of a taller image) equal their
+twins bit for bit and, on the rows whose window the tile holds, the whole
+image's; K1b seeded (``first_flags``, ``init_prev``) equals its twin, and
+seeded tiles chain to one launch; the exact sharded matcher on a
+``cuda:0`` x 8 mesh equals ``block_search_right`` with 8 K1 and 32 K1b
+launches.
 """
 
 import os
@@ -63,8 +69,8 @@ from chip_smoke import (  # noqa: E402
     perceptual_pair,
     perceptual_volume,
     pose_angles,
-    scan_volume,
 )
+from torch_helpers import halo_tile, scan_volume  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -548,3 +554,89 @@ def test_windowed_search_on_card_matches_cpu(cuda, tmp_path):
                              config)
     assert pscan.LAUNCHES == before + 2 and disp.device.type == "cuda"
     assert np.mean(disp.cpu().numpy() == got) >= 0.995
+
+
+# global-row mode (the sharded matcher's tiles): (image rows, tile row 0,
+# tile rows, width, block, min_d, max_d); rows outside the image are zero
+GLOBAL_CASES = [
+    (60, -6, 30, 70, 7, 0, 20),        # the top tile, padding above the image
+    (60, 17, 30, 70, 9, 2, 24),        # an inner tile, min_d > 0
+    (60, 40, 30, 70, 5, 0, 16),        # the bottom tile, padding below
+    (300, 100, 130, 200, 17, 0, 40),   # interior CTAs of an inner tile
+    (300, -40, 130, 200, 17, 1, 30),   # whole rows outside the image (area 0)
+]
+
+
+@pytest.mark.parametrize("h,row0,n,w,bs,min_d,max_d", GLOBAL_CASES)
+def test_k1_k2_global_rows_bit_equal_to_plain(cuda, rng, h, row0, n, w, bs, min_d, max_d):
+    left, right = (torch.from_numpy(a).to(cuda).float() for a in _integer_pair(rng, h, w))
+    lt, rt = halo_tile(left, row0, n), halo_tile(right, row0, n)
+    g = dict(row_offset=row0, total_height=h)
+    args = (bs, min_d, max_d)
+    got = ccv.matcher_inputs(lt, rt, *args, **g)
+    want = ccv.matcher_inputs_plain(lt, rt, *args, **g)
+    for name, a, b in zip(("m0", "a0", "c_zero", "diag_up", "diag_lf"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    vol = ccv.cost_volume(lt, rt, *args, **g)
+    assert torch.equal(vol, ccv.cost_volume_right_ssd(lt, rt, *args, **g))
+    # the rows whose window support the tile holds equal the whole image's
+    hw = bs - 1
+    lo, hi = max(row0 + hw, 0), min(row0 + n - hw, h)
+    whole = ccv.matcher_inputs(left, right, *args)
+    for a, b in zip(got, whole):
+        assert torch.equal(a[lo - row0:hi - row0], b[lo:hi])
+    assert torch.equal(vol[:, lo - row0:hi - row0], ccv.cost_volume(left, right, *args)[:, lo:hi])
+
+
+@pytest.mark.parametrize("h,w,d_first", [(9, 33, 0), (7, 1100, 2), (6, 2500, 0), (5, 4096, 1)])
+def test_k1b_seeded_bit_equal_to_plain(cuda, h, w, d_first):
+    srng = np.random.default_rng(w)
+    cost, black = scan_volume(srng, h, w, 12)
+    planes = volume_reductions(torch.from_numpy(cost).to(cuda), d_first)
+    black = torch.from_numpy(black).to(cuda)
+    first = torch.from_numpy(srng.random(h) < 0.3).to(cuda)
+    xs = np.arange(w, dtype=np.float32)
+    seed = np.choose(srng.integers(0, 3, w), [np.zeros(w, np.float32), -xs,
+                                              srng.integers(0, 12, w)]).astype(np.float32)
+    kw = dict(smooth_factor=0.9, d_first=d_first, n_planes=12, first_flags=first,
+              init_prev=torch.from_numpy(seed).to(cuda))
+    assert torch.equal(crs.row_scan(*planes, black, **kw),
+                       smoothed_argmin_from_inputs(*planes, black, **kw))
+    with pytest.raises(ValueError, match="first_flags"):
+        crs.row_scan(*planes, black, n_planes=12, first_flags=first.float())
+
+
+def test_k1b_seeded_tiles_chain_to_one_launch(cuda, rng):
+    left, right = (torch.from_numpy(a).to(cuda) for a in _integer_pair(rng, 120, 150))
+    planes = ccv.matcher_inputs(left, right, 9, 0, 30)
+    black = black_pixel_mask(right.float())
+    kw = dict(n_planes=30)
+    whole = crs.row_scan(*planes, black, **kw)
+    seed, parts = torch.zeros(150, device=cuda), []
+    for t in range(4):
+        sl = slice(30 * t, 30 * (t + 1))
+        first = torch.zeros(30, dtype=torch.bool, device=cuda)
+        first[0] = t == 0
+        parts.append(crs.row_scan(*(p[sl] for p in planes), black[sl], **kw,
+                                  first_flags=first, init_prev=seed))
+        seed = parts[-1][-1]
+    assert torch.equal(torch.cat(parts), whole)
+
+
+def test_sharded_matcher_on_card(cuda, rng):
+    from stereo_reconstruction_tpu_torch.parallel import make_mesh, sharded_block_search_right
+
+    pairs = [_integer_pair(rng, 96, 128) for _ in range(2)]
+    left = torch.from_numpy(np.stack([p[0] for p in pairs])).to(cuda)
+    right = torch.from_numpy(np.stack([p[1] for p in pairs])).to(cuda)
+    mesh = make_mesh(data=2, tile=4, devices=[cuda] * 8)
+    cfg = MatcherConfig(block_size=9, max_disparity=24)
+    k1, k1b = ccv.LAUNCHES, crs.LAUNCHES
+    got = sharded_block_search_right(left, right, mesh, cfg, exact=True)
+    assert (ccv.LAUNCHES - k1, crs.LAUNCHES - k1b) == (8, 32)
+    single = torch.stack([block_search_right(left[i], right[i], cfg) for i in range(2)])
+    assert torch.equal(got, single)
+    plain = sharded_block_search_right(left.cpu(), right.cpu(),
+                                       make_mesh(data=2, tile=4, devices=["cpu"] * 8),
+                                       cfg, exact=True)
+    assert torch.equal(got.cpu(), plain)

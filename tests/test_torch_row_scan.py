@@ -11,8 +11,6 @@ plants the zeros, sentinels, black pixels and ties the automaton turns on.
 """
 
 import inspect
-import os
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,9 +26,7 @@ from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
 from stereo_reconstruction_tpu_torch.ops import smoothing as tsm
 
 from test_block_search import _random_stereo
-
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from chip_smoke import scan_volume  # noqa: E402
+from torch_helpers import scan_volume
 
 torch.set_num_threads(1)
 
