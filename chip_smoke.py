@@ -20,8 +20,13 @@ code 1, no result line) if anything is off:
    planes must be bit equal; (d) 101x200, D=30, min_d=1, block 9, puts an
    interior K1 tile's band at the image bottom, where the overrun slots of
    its band loads must load nothing; then K1b on planted random planes (W
-   from 1 to 4096); median kernel and plain ms over 5 timed runs after a
-   warm-up;
+   from 1 to 8192) and on chain planes (``tests/torch_helpers.chain_planes``:
+   runs whose every pixel the entering case decides) at widths around its
+   64-column strips and 512-column one-warp clusters up to 8192, heights 1,
+   2, 282 and 1128; median kernel and plain ms over 5 timed runs after a
+   warm-up, and K1b's chain at (b): one 64-column strip alone (the
+   strip-step) against the whole canvas (the hand-offs, the fill and
+   warps sharing an SM);
 4. the matcher against a literal NumPy recurrence on a small pair;
 5. the slice: ``run_pair(fixed_F=F)`` on a synthetic 750x900 pair with
    a known F at the default config (block 17, D=200, outlier kernel 500),
@@ -109,9 +114,9 @@ code 1, no result line) if anything is off:
    twins on every halo-extended tile (the exact mode's and the warm-up
    mode's) and, the kept rows stitched, to K1 / K2 on the whole image;
    K1b seeded (``first_flags``, ``init_prev``) bit-equal to its twin on
-   planted planes at widths that reach its four instances and on the
-   matcher's own seeded and warm-up tiles of the pair, and a chain of
-   seeded tiles to one launch; the exact
+   planted planes from one strip to 8192 columns, on the chain planes of
+   phase 3 and on the matcher's own seeded and warm-up tiles of the pair,
+   and a chain of seeded tiles to one launch; the exact
    ``sharded_block_search_right`` bit-identical to ``block_search_right``
    of each pair with 8 K1 and 32 K1b launches (one K1 per pair and tile, 4
    seeded passes each), the warm-up mode >= 99.5% equal with 8 + 8;
@@ -150,7 +155,8 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-from torch_helpers import halo_tile, scale_aligned, scan_volume  # noqa: E402
+from torch_helpers import (STRIP_WIDTHS, chain_planes, halo_tile, scale_aligned,  # noqa: E402
+                           scan_volume, seed_rows)
 
 SEED = 0
 REPEATS = 5
@@ -1219,7 +1225,7 @@ def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=140
           f"bound {out['K2'][2][0]:.4f}); CUDA events, median of {REPEATS}", flush=True)
 
     # K1b seeded: planted planes with random first flags and seed rows, at
-    # widths that reach each of its four instances (K = ceil(W / 1024))
+    # widths from one strip to the widest row
     planted = ((9, 33, 0), (7, 700, 2), (6, 1100, 1), (6, 2500, 0), (5, crs.max_width(), 1))
     for hh, ww, d_first in planted:
         srng = np.random.default_rng(SEED + ww)
@@ -1238,6 +1244,20 @@ def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=140
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"K1b seeded != twin on planted planes {hh}x{ww}")
+    # and across its strip boundaries (chain planes)
+    for ww in STRIP_WIDTHS:
+        for hh in (1, 2, 282, 1128):
+            srng = np.random.default_rng(SEED + 17 * ww + hh)
+            *planes, black = (torch.from_numpy(a).to(dev)
+                              for a in chain_planes(srng, hh, ww, 12, (ww + hh) % 2 == 0))
+            first, seed = (torch.from_numpy(a).to(dev) for a in seed_rows(srng, hh, ww, 12))
+            scan = dict(smooth_factor=0.9, d_first=ww % 3, n_planes=12, first_flags=first,
+                        init_prev=seed)
+            got = crs.row_scan(*planes, black, **scan)
+            want = smoothing.smoothed_argmin_from_inputs(*planes, black, **scan)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1b seeded != twin on chain planes {hh}x{ww}")
     # a chain of row tiles, each seeded with the last row of the one before,
     # equals one launch over the whole height
     black = black_pixel_mask(rf)
@@ -1278,8 +1298,9 @@ def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=140
                       *tile_planes, black[sl], **seeded), torch),
                   scan_bound(rows, w))
     print(f"[sharded] {smi}: K1b seeded bit-equal to its twin on {len(planted)} planted "
-          f"cases (W 33 to {crs.max_width()}, K = 1 to 4, random first flags and seed "
-          f"rows) and on the matcher's {rows}-row seeded tile and {wu + rows}-row warm-up "
+          f"cases (W 33 to {crs.max_width()}, random first flags and seed rows), on chain "
+          f"planes at W {', '.join(map(str, STRIP_WIDTHS))} x H 1, 2, 282, 1128, and on "
+          f"the matcher's {rows}-row seeded tile and {wu + rows}-row warm-up "
           f"tile of the {h}x{w} D={D} pair; {n_tiles} seeded tiles chained bit-equal to "
           f"one launch over {h} rows; one {rows}-row seeded tile {out['K1b'][0]:.4f} ms "
           f"(plain {out['K1b'][1]:.2f}, bound {out['K1b'][2][0]:.4f})", flush=True)
@@ -1441,11 +1462,13 @@ def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=140
 
 def time_kernels() -> int:
     """``python3 chip_smoke.py --time-kernels``: K1, K1b, K2 and K3 at shape
-    (b) on the integer-valued pair (CUDA events, median of REPEATS over
-    CALLS back-to-back calls; K3 one call a sample), as one JSON line. It
-    uses only the wrappers' whole-image arguments, so a copy of this file
-    beside an older checkout times that checkout's kernels: run two
-    versions in turns in one call (A, B, B, A) to compare them."""
+    (b) on the integer-valued pair, and K1b seeded on the exact sharded
+    matcher's 282-row tile of it (``K1b_tile``; CUDA events, median of
+    REPEATS over CALLS back-to-back calls; K3 one call a sample), as one
+    JSON line. It uses only arguments the wrappers have taken since seeded
+    rows came in, so a copy of this file beside an older checkout times
+    that checkout's kernels: run two versions in turns in one call (A, B,
+    B, A) to compare them."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1469,9 +1492,16 @@ def time_kernels() -> int:
     planes = ccv.matcher_inputs(*args)
     black = black_pixel_mask(right)
     cfg = MatcherConfig()
+    # the exact sharded matcher's tile: rows 282-563, seeded with row 281
+    rows = slice(282, 564)
+    tile = [p[rows].contiguous() for p in planes]
+    seeded = dict(n_planes=200, first_flags=torch.zeros(282, dtype=torch.bool, device=dev),
+                  init_prev=crs.row_scan(*planes, black, n_planes=200)[281].contiguous())
     ms = {
         "K1": _median_ms(lambda: ccv.matcher_inputs(*args), torch, CALLS),
         "K1b": _median_ms(lambda: crs.row_scan(*planes, black, n_planes=200), torch, CALLS),
+        "K1b_tile": _median_ms(lambda: crs.row_scan(*tile, black[rows], **seeded), torch,
+                               CALLS),
         "K2": _median_ms(lambda: ccv.cost_volume(*args), torch, CALLS),
         "K3": _median_ms(lambda: cbs.block_search_fused(left, right, cfg), torch),
     }
@@ -1582,6 +1612,17 @@ def main() -> int:
         print(f"[kernel] shape ({key}): K1b bit-equal to the plain scan on K1's planes; "
               f"K1b {k_ms:.4f} ms, plain {p_ms:.4f} ms (median of {REPEATS}); "
               f"bound {bounds['K1b', key][0]:.4f} ms", flush=True)
+        if key == "b":
+            # K1b's chain: one 64-column strip alone (H strip-steps, no
+            # hand-off) against the canvas (the same steps plus the hand-offs,
+            # the fill over its strip boundaries and warps sharing an SM)
+            one = [p[:, :64].contiguous() for p in planes]
+            one_black = black[:, :64].contiguous()
+            one_ms = _median_ms(lambda: crs.row_scan(*one, one_black, **scan), torch, CALLS)
+            print(f"[kernel] K1b chain at (b): one 64-column strip {one_ms:.4f} ms "
+                  f"({one_ms / s['h'] * 1e3:.4f} us a strip-step); the canvas's "
+                  f"{-(-s['w'] // 64)} strips {k_ms:.4f} ms, {k_ms - one_ms:.4f} ms more "
+                  f"(hand-offs, fill, warps sharing an SM)", flush=True)
         got = ccv.cost_volume(*args)
         want = ccv.cost_volume_right_ssd(*args)
         torch.cuda.synchronize()
@@ -1619,6 +1660,25 @@ def main() -> int:
     print(f"[kernel] K1b bit-equal to the plain scan on {len(scan_cases)} planted "
           f"cases (W 1 to {crs.max_width()}, d_first 0-2, sf 0.9 / 1.0 with ties / "
           f"0.5 / 0.0)", flush=True)
+    # K1b across its strip boundaries: chain planes, where a wrong case handed
+    # from strip to strip changes the pixels to its right
+    t0 = time.perf_counter()
+    for w in STRIP_WIDTHS:
+        for h in (1, 2, 282, 1128):
+            ties = (w + h) % 2 == 1
+            *planes, black = (torch.from_numpy(a).to(dev) for a in chain_planes(
+                np.random.default_rng(SEED + 31 * w + h), h, w, 12, ties))
+            scan = dict(smooth_factor=1.0 if ties else 0.9, d_first=w % 3, n_planes=12)
+            got = crs.row_scan(*planes, black, **scan)
+            plain = smoothing.smoothed_argmin_from_inputs(*planes, black, **scan)
+            torch.cuda.synchronize()
+            if not torch.equal(got, plain):
+                raise AssertionError(f"K1b != plain scan on chain planes {h}x{w}: "
+                                     f"{(got != plain).float().mean().item():.3%} of pixels")
+            max_err["K1b"] = max(max_err["K1b"], _max_abs_err(got, plain))
+    print(f"[kernel] K1b bit-equal to the plain scan on chain planes at W "
+          f"{', '.join(map(str, STRIP_WIDTHS))} x H 1, 2, 282, 1128 "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # 4. the matcher (K1 + row scan) against a literal NumPy recurrence
     rng = np.random.default_rng(SEED)

@@ -5,26 +5,45 @@
 
 namespace {
 
-template <int K>
+// One cluster: `strips` warps spread over at most kMaxCluster CTAs of at
+// most kMaxWarps warps each, as few warps a CTA as that allows.
+template <bool kSeeded>
 cudaError_t launch(const float* m0, const int* a0, const float* cz,
                    const float* du, const float* dl, const unsigned char* black,
                    const unsigned char* first, const float* init_prev, float* out,
                    int H, int W, float sf, int d_first, int D, cudaStream_t stream) {
-  const int threads = ((W + K - 1) / K + 31) / 32 * 32;
-  if (first != nullptr || init_prev != nullptr)
-    stpu::row_scan_kernel<K, true><<<1, threads, 0, stream>>>(
-        m0, a0, cz, du, dl, black, first, init_prev, out, H, W, sf, d_first, D);
-  else
-    stpu::row_scan_kernel<K, false><<<1, threads, 0, stream>>>(
-        m0, a0, cz, du, dl, black, first, init_prev, out, H, W, sf, d_first, D);
-  return cudaGetLastError();
+  using namespace stpu::k1b;
+  const int strips = (W + kStripCols - 1) / kStripCols;
+  const int warps = (strips + kMaxCluster - 1) / kMaxCluster;
+  const int ctas = (strips + warps - 1) / warps;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ctas);
+  config.blockDim = dim3(32 * warps);
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, stpu::row_scan_kernel<kSeeded>, m0, a0, cz, du, dl, black, first,
+      init_prev, out, H, W, sf, d_first, D, strips);
+  const cudaError_t last = cudaGetLastError();      // clears a refused launch's error
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
 
-// The widest row K1b takes (4096); the Python wrapper reads it from here.
-extern "C" int stpu_row_scan_max_width() {
-  return stpu::k1b::kMaxThreads * stpu::k1b::kMaxCols;
+// The widest row K1b takes (8192: 8 CTAs x 16 strips x 64 columns); the
+// Python wrapper reads it from here.
+extern "C" int stpu_row_scan_max_width() { return stpu::k1b::kMaxWidth; }
+
+// The name of a cudaError_t that stpu_row_scan returned.
+extern "C" const char* stpu_row_scan_error(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }
 
 // Launches K1b on `stream`; returns the cudaError_t of the launch (0 = ok).
@@ -39,22 +58,12 @@ extern "C" int stpu_row_scan(const float* m0, const int* a0, const float* cz,
                              const unsigned char* black, const unsigned char* first,
                              const float* init_prev, float* out, int H, int W,
                              float sf, int d_first, int D, void* stream) {
-  using stpu::k1b::kMaxThreads;
   if (H <= 0 || W <= 0 || W > stpu_row_scan_max_width() || D <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch ((W + kMaxThreads - 1) / kMaxThreads) {
-    case 1:
-      return (int)launch<1>(m0, a0, cz, du, dl, black, first, init_prev, out, H, W, sf,
-                              d_first, D, s);
-    case 2:
-      return (int)launch<2>(m0, a0, cz, du, dl, black, first, init_prev, out, H, W, sf,
-                              d_first, D, s);
-    case 3:
-      return (int)launch<3>(m0, a0, cz, du, dl, black, first, init_prev, out, H, W, sf,
-                              d_first, D, s);
-    default:
-      return (int)launch<4>(m0, a0, cz, du, dl, black, first, init_prev, out, H, W, sf,
-                              d_first, D, s);
-  }
+  if (first != nullptr || init_prev != nullptr)
+    return (int)launch<true>(m0, a0, cz, du, dl, black, first, init_prev, out, H, W, sf,
+                             d_first, D, s);
+  return (int)launch<false>(m0, a0, cz, du, dl, black, first, init_prev, out, H, W, sf,
+                            d_first, D, s);
 }

@@ -115,6 +115,8 @@ def load_library() -> ctypes.CDLL:
         lib.stpu_row_scan.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
                                       ctypes.c_float, i, i, p]
         lib.stpu_row_scan.restype = i
+        lib.stpu_row_scan_error.argtypes = [i]
+        lib.stpu_row_scan_error.restype = ctypes.c_char_p
         lib.stpu_perceptual_scan.argtypes = [p, p, p, i, i, i, i, p]
         lib.stpu_perceptual_scan.restype = i
         lib.stpu_perceptual_scan_smem_bytes.argtypes = [i, i]

@@ -3,8 +3,10 @@ wrapper that picks between it and its plain twin by device.
 
 K1b replaces the ``lax.scan`` of ``stereo_reconstruction_tpu/ops/
 smoothing.py::smoothed_argmin_from_inputs``: from K1's five planes and the
-black mask it runs the Right variant's smoothing recurrence row by row in
-one CTA. Its plain twin is ``ops/smoothing.py::smoothed_argmin_from_inputs``
+black mask it runs the Right variant's smoothing recurrence row by row, in
+one launch of one thread-block cluster whose warps each own a strip of
+columns and hand the left-neighbour case on to the strip to their right.
+Its plain twin is ``ops/smoothing.py::smoothed_argmin_from_inputs``
 (a Python loop over rows); the two agree bit for bit on any input.
 
 Both take ``first_flags`` (the rows with no up neighbour) and ``init_prev``
@@ -13,7 +15,8 @@ sharded matcher's seeded row tiles; without them row 0 alone is first and
 the seed is 0.
 
 The wrapper takes the twin only for CPU tensors. CUDA tensors launch the
-kernel or raise; nothing falls back.
+kernel or raise (a refused or failed cluster launch raises
+``RuntimeError`` with the CUDA error's name); nothing falls back.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ LAUNCHES = 0
 
 
 def max_width() -> int:
-    """The widest row K1b takes (1024 threads x 4 columns), as the kernel
-    library defines it; builds the library on first use."""
+    """The widest row K1b takes (8 CTAs x 16 strips x 64 columns), as the
+    kernel library defines it; builds the library on first use."""
     from stereo_reconstruction_tpu_torch.kernels.build import load_library
 
     return load_library().stpu_row_scan_max_width()
@@ -107,6 +110,7 @@ def row_scan(
             diag_lf.data_ptr(), black.data_ptr(), first_ptr, prev_ptr, out.data_ptr(),
             h, w, float(smooth_factor), d_first, n_planes, stream)
     if rc != 0:
-        raise RuntimeError(f"K1b launch failed: cudaError {rc}")
+        raise RuntimeError(f"K1b launch failed: cudaError {rc} "
+                           f"({lib.stpu_row_scan_error(rc).decode()})")
     LAUNCHES += 1
     return out

@@ -148,15 +148,24 @@ def smoothed_argmin_reference(
     cost: torch.Tensor,        # (D, H, W), +inf = invalid candidate
     black: torch.Tensor,       # (H, W) bool: pixels forced to 0
     smooth_factor: float = 0.9,
+    iters: int = 2,            # JAX's parameter, kept for its call sites; the scan is exact
     d_first: int = 0,          # dvals = d_first + arange(D); requires >= 0
+    first_flags: Optional[torch.Tensor] = None,   # (H,) rows with no up neighbour
+    init_prev: Optional[torch.Tensor] = None,     # (W,) row 0's up neighbour
 ) -> torch.Tensor:
-    """Exact reference-mode smoothing from the full volume."""
+    """Exact reference-mode smoothing from the full volume, with JAX's
+    parameters in JAX's order (``iters`` is ignored there too);
+    ``first_flags`` and ``init_prev`` go to ``smoothed_argmin_from_inputs``."""
     if d_first < 0:
-        raise ValueError("d_first < 0 needs the fixpoint smoother (not ported)")
+        raise ValueError(
+            f"the exact scan needs d_first >= 0, got {d_first}: with a negative "
+            "candidate the discount is no longer confined to d = 0 and d = x; "
+            "smoothed_argmin(..., iters=None) takes any d_first")
     m0, a0, c_zero, diag_up, diag_lf = volume_reductions(cost, d_first)
     return smoothed_argmin_from_inputs(
         m0, a0, c_zero, diag_up, diag_lf, black,
         smooth_factor=smooth_factor, d_first=d_first, n_planes=cost.shape[0],
+        first_flags=first_flags, init_prev=init_prev,
     )
 
 

@@ -26,7 +26,10 @@ widths: 100% within 2 px, >= 98% exact) with one K4 launch. K1 and K2 in
 global-row mode (a halo-extended row tile of a taller image) equal their
 twins bit for bit and, on the rows whose window the tile holds, the whole
 image's; K1b seeded (``first_flags``, ``init_prev``) equals its twin, and
-seeded tiles chain to one launch; the exact sharded matcher on a
+seeded tiles chain to one launch; K1b equals its twin on chain planes
+(``torch_helpers.chain_planes``) at widths around its strip and cluster
+boundaries up to its widest row (8192), plain and seeded, and a row wider
+than 4096 goes through K1 and K1b in ``block_search_right``; the exact sharded matcher on a
 ``cuda:0`` x 8 mesh equals ``block_search_right`` with 8 K1 and 32 K1b
 launches.
 """
@@ -70,7 +73,13 @@ from chip_smoke import (  # noqa: E402
     perceptual_volume,
     pose_angles,
 )
-from torch_helpers import halo_tile, scan_volume  # noqa: E402
+from torch_helpers import (  # noqa: E402
+    STRIP_WIDTHS,
+    chain_planes,
+    halo_tile,
+    scan_volume,
+    seed_rows,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -186,7 +195,8 @@ def test_k1_refuses_blocks_above_17(cuda, rng, kernel):
     (5, 1100, 0, 0.9, False),       # 2 columns per thread
     (5, 1100, 2, 0.5, True),
     (4, 2100, 0, 0.9, False),       # 3 columns per thread
-    (3, 4096, 1, 0.9, True),        # the widest row: 4 columns per thread
+    (3, 4096, 1, 0.9, True),        # 64 strips: 8 CTAs of 8 warps
+    (3, 8192, 1, 0.9, True),        # the widest row: 8 CTAs of 16 warps
     (6, 70, 0, 0.0, False),         # inf * 0 = NaN compares false
 ])
 def test_k1b_bit_equal_to_plain_on_random_planes(cuda, h, w, d_first, sf, ties):
@@ -209,6 +219,58 @@ def test_k1b_bit_equal_to_plain_on_k1_planes(cuda, rng):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("h", [1, 2, 282, 1128])
+@pytest.mark.parametrize("w", STRIP_WIDTHS)
+def test_k1b_bit_equal_to_plain_across_strip_boundaries(cuda, w, h, seeded):
+    """Chain planes: a wrong case handed from strip to strip changes the
+    pixels to its right; plain and seeded rows."""
+    rng = np.random.default_rng(w * 31 + h + seeded)
+    ties = (w + h) % 2 == 1
+    *planes, black = (torch.from_numpy(a).to(cuda) for a in chain_planes(rng, h, w, 12, ties))
+    kw = dict(smooth_factor=1.0 if ties else 0.9, d_first=w % 3, n_planes=12)
+    if seeded:
+        first, seed = (torch.from_numpy(a).to(cuda) for a in seed_rows(rng, h, w, 12))
+        kw.update(first_flags=first, init_prev=seed)
+    got = crs.row_scan(*planes, black, **kw)
+    assert torch.equal(got, smoothed_argmin_from_inputs(*planes, black, **kw))
+
+
+def test_block_search_past_4096_columns_runs_k1_and_k1b(cuda, rng):
+    left, right = (torch.from_numpy(a).to(cuda) for a in _integer_pair(rng, 6, 6000))
+    cfg = MatcherConfig(block_size=5, max_disparity=16)
+    k1, k1b = ccv.LAUNCHES, crs.LAUNCHES
+    got = block_search_right(left, right, cfg)
+    assert (ccv.LAUNCHES - k1, crs.LAUNCHES - k1b) == (1, 1)
+    want = block_search_right(left, right, MatcherConfig(block_size=5, max_disparity=16,
+                                                         backend="xla"))
+    assert torch.equal(got, want)
+
+
+def test_k1b_refused_launch_raises_and_counts_nothing(cuda, monkeypatch):
+    """A launch the runtime refuses (here a library stub returning
+    cudaErrorInvalidConfiguration) raises, naming K1b and the error."""
+    from stereo_reconstruction_tpu_torch.kernels import build
+
+    class Refusing:
+        def stpu_row_scan_max_width(self):
+            return 8192
+
+        def stpu_row_scan(self, *args):
+            return 9
+
+        def stpu_row_scan_error(self, err):
+            return b"invalid configuration argument"
+
+    cost, black = scan_volume(np.random.default_rng(0), 4, 40, 8)
+    planes = volume_reductions(torch.from_numpy(cost).to(cuda), 0)
+    monkeypatch.setattr(build, "load_library", lambda: Refusing())
+    before = crs.LAUNCHES
+    with pytest.raises(RuntimeError, match=r"K1b launch failed: cudaError 9 \(invalid conf"):
+        crs.row_scan(*planes, torch.from_numpy(black).to(cuda), n_planes=8)
+    assert crs.LAUNCHES == before
+
+
 def test_k1b_wrapper_checks_and_counts(cuda):
     cost, black = scan_volume(np.random.default_rng(0), 4, 40, 8)
     planes = volume_reductions(torch.from_numpy(cost).to(cuda), 0)
@@ -220,7 +282,7 @@ def test_k1b_wrapper_checks_and_counts(cuda):
     assert crs.LAUNCHES == before + 1
     with pytest.raises(ValueError, match="int32"):
         crs.row_scan(planes[0], planes[1].long(), *planes[2:], black, n_planes=8)
-    assert crs.max_width() == 4096
+    assert crs.max_width() == 8192
     wide = torch.zeros((2, crs.max_width() + 1), device=cuda)
     with pytest.raises(ValueError, match="W <="):
         crs.row_scan(wide, wide.int(), wide, wide, wide, wide.bool(), n_planes=8)
@@ -588,7 +650,8 @@ def test_k1_k2_global_rows_bit_equal_to_plain(cuda, rng, h, row0, n, w, bs, min_
     assert torch.equal(vol[:, lo - row0:hi - row0], ccv.cost_volume(left, right, *args)[:, lo:hi])
 
 
-@pytest.mark.parametrize("h,w,d_first", [(9, 33, 0), (7, 1100, 2), (6, 2500, 0), (5, 4096, 1)])
+@pytest.mark.parametrize("h,w,d_first", [(9, 33, 0), (7, 1100, 2), (6, 2500, 0), (5, 4096, 1),
+                                         (4, 8192, 2)])
 def test_k1b_seeded_bit_equal_to_plain(cuda, h, w, d_first):
     srng = np.random.default_rng(w)
     cost, black = scan_volume(srng, h, w, 12)
