@@ -97,8 +97,9 @@ code 1, no result line) if anything is off:
 14. the perceptual matcher (BASELINE config 3) at 375x450, D=100, window
    17, chunk 20, full VGG-16 widths with the seed-0 He-init weights: K4
    bit-equal to its twin on planted volumes (``perceptual_volume``: ties,
-   W 1 to 700, chunk 1 to 64, the clamp ``mean == size``) and on the
-   scene's windowed volume; the windowed search on a random texture
+   NaN and +-0.0, H 1 to 6, W 1 to 700, D 7 to 600, chunk 1 to 150, 0 to 4
+   staged rows, the clamp ``mean == size``) and on the scene's windowed
+   volume, and K4's chain (one chunk strip alone); the windowed search on a random texture
    shifted by 9 px (``perceptual_pair``) with one K4 launch and >= 95% of
    interior pixels within 1 px of 9; the port's notebook oracle, fed the
    search's own row y-1, 100% within 2 px and >= 98% exact on rows 11,
@@ -129,8 +130,10 @@ code 1, no result line) if anything is off:
    (``multihost``, a ``file://`` store) running the exact matcher equal
    to the one-process mesh.
 
-``python3 chip_smoke.py --time-kernels`` times K1, K1b, K2 and K3 at
-shape (b) and prints one JSON line (``time_kernels``).
+``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4]`` times K1, K1b,
+K2 and K3 at shape (b) and K4 at 375x450 (D=100 and 200, and one strip
+alone), or only the kernels named, and prints one JSON line
+(``time_kernels``).
 
 Each path (5, 6, 8, 9, 10, 12, 13, 14, 15) runs with every launch count set to 0 just
 before it and read just after; the launches made to compare a kernel with
@@ -187,14 +190,17 @@ def _random_stereo(rng, h, w, max_d=8, noise=6, wl_extra=0):
     return left, right
 
 
-def perceptual_volume(rng, h, d, w, ties=False):
+def perceptual_volume(rng, h, d, w, ties=False, specials=False):
     """An (h, d, w) float32 cost volume that drives every branch of the
     windowed smoother (K4): costs in [1, 1.25] (so the weights, 0.85-1.85,
     flip winners), +inf past each pixel's min(d, w - x) candidates as in a
     real volume, a few more +inf entries and all-+inf pixels, and the last
     valid candidate made cheap near the right edge, so a pixel's left
     neighbour picks an index equal to its own candidate count (the clamp
-    ``mean == size``). ``ties`` rounds the costs to 1/8."""
+    ``mean == size``). ``ties`` rounds the costs to 1/8. ``specials`` then
+    seeds NaN (~0.3 a pixel) and +0.0 and -0.0 (~0.5 a pixel each) among
+    the finite costs: a NaN wins its pixel, and +0.0 ties -0.0, the smaller
+    index winning."""
     cost = rng.uniform(1.0, 1.25, (h, d, w)).astype(np.float32)
     if ties:
         cost = np.round(cost * 8) / 8
@@ -204,6 +210,11 @@ def perceptual_volume(rng, h, d, w, ties=False):
     edge = np.arange(w) >= w - d
     cost[:, sizes[edge] - 1, np.flatnonzero(edge)] = 0.5
     cost[:, np.arange(d)[:, None] >= sizes[None, :]] = np.inf
+    if specials:
+        u = np.where(np.isfinite(cost), rng.uniform(size=cost.shape) * d, np.inf)
+        cost[u < 0.3] = np.nan
+        cost[(u >= 0.3) & (u < 0.8)] = 0.0
+        cost[(u >= 0.8) & (u < 1.3)] = -0.0
     return cost
 
 
@@ -954,14 +965,24 @@ def perceptual_phase(torch, dev, smi, counts, reset_counts, expected, h=375, w=4
 
     t_phase = time.perf_counter()
     # K4 against its twin on planted volumes: ties, W not a multiple of the
-    # chunk, W = 1, chunk 1 and 20, the clamp mean == size, chunk > W
+    # chunk, W = 1, chunk 1 and 20, the clamp mean == size, chunk > W; NaN,
+    # +0.0 and -0.0 ("specials"), H = 1 and H < len, D = 33 and 200, a warp
+    # with several positions (chunk 33, 64), W = chunk + 1; 3, 2, 1 and no
+    # staged rows a position (D 150-600 at chunk 100-150)
     max_err, clamps = 0.0, 0
     cases = [(6, 12, 50, 20, False), (5, 12, 50, 20, True), (4, 7, 1, 20, False),
              (5, 8, 33, 1, True), (4, 40, 45, 20, False), (3, 30, 70, 7, True),
-             (3, 12, 40, 64, False), (4, 100, 450, 20, True), (2, 200, 700, 20, False)]
+             (3, 12, 40, 64, False), (4, 100, 450, 20, True), (2, 200, 700, 20, False),
+             (5, 12, 50, 20, "specials"), (4, 100, 450, 20, "specials"),
+             (1, 12, 50, 20, False), (3, 12, 60, 20, True), (4, 33, 50, 20, False),
+             (3, 200, 450, 20, True), (3, 12, 20, 1, "specials"), (4, 12, 70, 33, True),
+             (3, 40, 130, 64, "specials"), (4, 12, 21, 20, False), (3, 150, 127, 120, True),
+             (2, 200, 127, 120, False), (2, 300, 157, 150, "specials"),
+             (2, 600, 107, 100, False)]
     for ph, pd, pw, chunk, ties in cases:
-        vol = torch.from_numpy(perceptual_volume(np.random.default_rng(pw + chunk), ph, pd,
-                                                 pw, ties)).to(dev)
+        vol = torch.from_numpy(perceptual_volume(
+            np.random.default_rng(pw + chunk), ph, pd, pw, ties=ties is True,
+            specials=ties == "specials")).to(dev)
         table = pscan.weight_table(pd, 25.0, 0.85, dev)
         got = pscan.window_scan(vol, table, chunk)
         want = pscan.window_scan_plain(vol, table, chunk)
@@ -976,8 +997,8 @@ def perceptual_phase(torch, dev, smi, counts, reset_counts, expected, h=375, w=4
     if clamps == 0:
         raise AssertionError("no planted case reached the clamp mean == size")
     print(f"[perceptual] K4 bit-equal to its twin on {len(cases)} planted volumes (ties, "
-          f"W 1 to 700, D 7 to 200, chunk 1 / 7 / 20 / 64; {clamps} pixels at the clamp "
-          f"mean == size)", flush=True)
+          f"NaN and +-0.0, H 1 to 6, W 1 to 700, D 7 to 600, chunk 1 to 150, 0 to 4 staged "
+          f"rows; {clamps} pixels at the clamp mean == size)", flush=True)
 
     # the windowed search at full width on a shifted random texture
     d0 = 9
@@ -1024,6 +1045,14 @@ def perceptual_phase(torch, dev, smi, counts, reset_counts, expected, h=375, w=4
           f"(host clock, median of 2 after a warm-up); K4 {k4_ms:.4f} ms, bit-equal to its "
           f"twin ({plain_ms:.2f} ms) on the volume (CUDA events, median of {REPEATS}); "
           f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    # K4's chain: one chunk strip alone (its H + chunk - 1 diagonals) against
+    # the whole width (the same chain in every strip at once)
+    strip = volume[:, :, :pcfg.chunk].contiguous()
+    strip_ms = _median_ms(lambda: pscan.window_scan(strip, table, pcfg.chunk), torch, CALLS)
+    diagonals = h + pcfg.chunk - 1
+    print(f"[perceptual] K4 chain: one {pcfg.chunk}-column strip {strip_ms:.4f} ms, "
+          f"{diagonals} diagonals, {strip_ms / diagonals * 1e3:.4f} us a diagonal; the "
+          f"{-(-w // pcfg.chunk)} strips of the width {k4_ms:.4f} ms", flush=True)
     del volume
     split, device_ms, wall_ms = _search_split(
         lambda: pcost.windowed_lpips_search(module, left, right, pcfg), torch)
@@ -1460,15 +1489,18 @@ def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=140
     return out, launches
 
 
-def time_kernels() -> int:
-    """``python3 chip_smoke.py --time-kernels``: K1, K1b, K2 and K3 at shape
-    (b) on the integer-valued pair, and K1b seeded on the exact sharded
-    matcher's 282-row tile of it (``K1b_tile``; CUDA events, median of
-    REPEATS over CALLS back-to-back calls; K3 one call a sample), as one
-    JSON line. It uses only arguments the wrappers have taken since seeded
-    rows came in, so a copy of this file beside an older checkout times
-    that checkout's kernels: run two versions in turns in one call (A, B,
-    B, A) to compare them."""
+def time_kernels(only=()) -> int:
+    """``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4]``: K1, K1b,
+    K2 and K3 at shape (b) on the integer-valued pair, and K1b seeded on the
+    exact sharded matcher's 282-row tile of it (``K1b_tile``); K4 on a
+    planted ``perceptual_volume`` at 375x450, D=100, chunk 20, one 20-column
+    strip of it alone (``K4_strip``: the chain of 394 diagonals) and at
+    D=200 (``K4_D200``, the default config's D). Names given: only those
+    kernels. CUDA events, median of REPEATS over CALLS back-to-back calls
+    (K3 one call a sample), as one JSON line. It uses only arguments the
+    wrappers have taken since seeded rows came in, so a copy of this file
+    beside an older checkout times that checkout's kernels: run two
+    versions in turns in one call (A, B, B, A) to compare them."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1480,33 +1512,51 @@ def time_kernels() -> int:
     from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
     from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
     from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
+    from stereo_reconstruction_tpu_torch.perceptual import scan as pscan
 
+    only = set(only) or {"K1", "K1b", "K2", "K3", "K4"}
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    left_np, right_np = _random_stereo(np.random.default_rng(SEED), 1128, 1408)
-    left = torch.from_numpy(left_np).to(dev, torch.float32)
-    right = torch.from_numpy(right_np).to(dev, torch.float32)
-    args = (left, right, 17, 0, 200)
-    planes = ccv.matcher_inputs(*args)
-    black = black_pixel_mask(right)
-    cfg = MatcherConfig()
-    # the exact sharded matcher's tile: rows 282-563, seeded with row 281
-    rows = slice(282, 564)
-    tile = [p[rows].contiguous() for p in planes]
-    seeded = dict(n_planes=200, first_flags=torch.zeros(282, dtype=torch.bool, device=dev),
-                  init_prev=crs.row_scan(*planes, black, n_planes=200)[281].contiguous())
-    ms = {
-        "K1": _median_ms(lambda: ccv.matcher_inputs(*args), torch, CALLS),
-        "K1b": _median_ms(lambda: crs.row_scan(*planes, black, n_planes=200), torch, CALLS),
-        "K1b_tile": _median_ms(lambda: crs.row_scan(*tile, black[rows], **seeded), torch,
-                               CALLS),
-        "K2": _median_ms(lambda: ccv.cost_volume(*args), torch, CALLS),
-        "K3": _median_ms(lambda: cbs.block_search_fused(left, right, cfg), torch),
-    }
+    ms = {}
+    if only & {"K1", "K1b", "K2", "K3"}:
+        left_np, right_np = _random_stereo(np.random.default_rng(SEED), 1128, 1408)
+        left = torch.from_numpy(left_np).to(dev, torch.float32)
+        right = torch.from_numpy(right_np).to(dev, torch.float32)
+        args = (left, right, 17, 0, 200)
+        planes = ccv.matcher_inputs(*args)
+        black = black_pixel_mask(right)
+        # the exact sharded matcher's tile: rows 282-563, seeded with row 281
+        rows = slice(282, 564)
+        tile = [p[rows].contiguous() for p in planes]
+        seeded = dict(n_planes=200, first_flags=torch.zeros(282, dtype=torch.bool, device=dev),
+                      init_prev=crs.row_scan(*planes, black, n_planes=200)[281].contiguous())
+        timers = {
+            "K1": lambda: ccv.matcher_inputs(*args),
+            "K1b": lambda: crs.row_scan(*planes, black, n_planes=200),
+            "K1b_tile": lambda: crs.row_scan(*tile, black[rows], **seeded),
+            "K2": lambda: ccv.cost_volume(*args),
+        }
+        for key, fn in timers.items():
+            if key.split("_")[0] in only:
+                ms[key] = _median_ms(fn, torch, CALLS)
+        if "K3" in only:
+            ms["K3"] = _median_ms(lambda: cbs.block_search_fused(left, right, MatcherConfig()),
+                                  torch)
+    if "K4" in only:
+        for key, D in (("K4", 100), ("K4_D200", 200)):
+            vol = torch.from_numpy(perceptual_volume(np.random.default_rng(SEED), 375, D,
+                                                     450)).to(dev)
+            table = pscan.weight_table(D, 25.0, 0.85, dev)
+            ms[key] = _median_ms(lambda: pscan.window_scan(vol, table, 20), torch, CALLS)
+            if D == 100:
+                strip = vol[:, :, :20].contiguous()
+                ms["K4_strip"] = _median_ms(lambda: pscan.window_scan(strip, table, 20), torch,
+                                            CALLS)
     print(json.dumps({"card": smi, "checkout": os.path.dirname(os.path.abspath(__file__)),
-                      "shape": "(b) 1128x1408, D=200, block 17", "ms": ms}))
+                      "shape": "(b) 1128x1408, D=200, block 17; K4 375x450, chunk 20 "
+                               "(394 diagonals a strip)", "ms": ms}))
     return 0
 
 
@@ -2015,4 +2065,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(time_kernels() if sys.argv[1:] == ["--time-kernels"] else main())
+    sys.exit(time_kernels(sys.argv[2:]) if sys.argv[1:2] == ["--time-kernels"] else main())

@@ -117,10 +117,12 @@ def load_library() -> ctypes.CDLL:
         lib.stpu_row_scan.restype = i
         lib.stpu_row_scan_error.argtypes = [i]
         lib.stpu_row_scan_error.restype = ctypes.c_char_p
-        lib.stpu_perceptual_scan.argtypes = [p, p, p, i, i, i, i, p]
+        lib.stpu_perceptual_scan.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.stpu_perceptual_scan.restype = i
         lib.stpu_perceptual_scan_smem_bytes.argtypes = [i, i]
         lib.stpu_perceptual_scan_smem_bytes.restype = ctypes.c_longlong
+        lib.stpu_perceptual_scan_scratch_bytes.argtypes = [i, i, i]
+        lib.stpu_perceptual_scan_scratch_bytes.restype = ctypes.c_longlong
         lib.stpu_perceptual_scan_max_smem.argtypes = []
         lib.stpu_perceptual_scan_max_smem.restype = ctypes.c_longlong
         _LIB = lib

@@ -15,7 +15,8 @@ multiply by the same float32 numbers and agree bit for bit, and a test can
 hand them the JAX package's own weights.
 
 The wrapper takes the twin only for CPU tensors. CUDA tensors launch the
-kernel or raise; nothing falls back.
+kernel or raise; nothing falls back. On the card K4 takes a scratch copy of
+the volume in (H, W, D) order, as large as the volume.
 """
 
 from __future__ import annotations
@@ -101,12 +102,16 @@ def window_scan(cost: torch.Tensor, table: torch.Tensor, chunk: int) -> torch.Te
     smem = lib.stpu_perceptual_scan_smem_bytes(D, chunk)
     if smem > max_smem():
         raise ValueError(f"K4's shared memory for D={D} and chunk={chunk} is {smem} bytes, "
-                         f"above the {max_smem()} a CTA may have (two (D, chunk) slabs)")
+                         f"above the {max_smem()} a CTA may have (the D + 1 weights, D + 1 "
+                         f"ones and two rows of chunk indices)")
+    # the volume's (H, W, D) copy that K4's scan reads
+    cols = torch.empty(lib.stpu_perceptual_scan_scratch_bytes(h, D, w) // 4,
+                       dtype=torch.float32, device=device)
     out = torch.empty((h, w), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        rc = lib.stpu_perceptual_scan(cost.data_ptr(), table.data_ptr(), out.data_ptr(),
-                                      h, D, w, chunk, stream)
+        rc = lib.stpu_perceptual_scan(cost.data_ptr(), table.data_ptr(), cols.data_ptr(),
+                                      out.data_ptr(), h, D, w, chunk, stream)
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -556,10 +556,20 @@ def test_run_uncalibrated_on_card(cuda, tmp_path, detector):
     (6, 12, 50, 20, False), (5, 12, 50, 20, True), (4, 7, 1, 20, False),
     (5, 8, 33, 1, True), (4, 40, 45, 20, False), (3, 30, 70, 7, True),
     (3, 12, 40, 64, False), (3, 100, 450, 20, True), (2, 200, 700, 33, False),
+    # NaN, +0.0 and -0.0; H = 1 and H < len; D = 33 and 200; chunk 1; a warp
+    # with several positions (chunk 33, 64); W = chunk + 1
+    (5, 12, 50, 20, "specials"), (3, 100, 450, 20, "specials"), (1, 12, 50, 20, False),
+    (3, 12, 60, 20, True), (4, 33, 50, 20, False), (3, 200, 450, 20, True),
+    (3, 12, 20, 1, "specials"), (4, 12, 70, 33, True), (3, 40, 130, 64, "specials"),
+    (4, 12, 21, 20, False),
+    # 2, 1 and no staged rows a position
+    (3, 150, 127, 120, True), (2, 200, 127, 120, False), (2, 300, 157, 150, "specials"),
+    (2, 600, 107, 100, False),
 ])
 def test_k4_bit_equal_to_plain_on_planted_volumes(cuda, h, d, w, chunk, ties):
     vol = torch.from_numpy(perceptual_volume(np.random.default_rng(w + chunk), h, d, w,
-                                             ties)).to(cuda)
+                                             ties=ties is True,
+                                             specials=ties == "specials")).to(cuda)
     table = pscan.weight_table(d, 25.0, 0.85, cuda)
     got = pscan.window_scan(vol, table, chunk)
     want = pscan.window_scan_plain(vol, table, chunk)
@@ -584,11 +594,18 @@ def test_k4_wrapper_checks_and_counts(cuda):
         pscan.window_scan(vol.double(), table, 20)
     with pytest.raises(ValueError, match="contiguous"):
         pscan.window_scan(vol.transpose(1, 2).contiguous().transpose(1, 2), table, 20)
-    big = torch.zeros((1, 2000, 64), device=cuda)
+    # D = 2000 with chunk 64 stages no row (the direct instance): a run
+    big = torch.from_numpy(perceptual_volume(np.random.default_rng(1), 2, 2000, 64)).to(cuda)
+    big_table = pscan.weight_table(2000, 25.0, 0.85, cuda)
+    assert torch.equal(pscan.window_scan(big, big_table, 64),
+                       pscan.window_scan_plain(big, big_table, 64))
+    assert pscan.LAUNCHES == before + 2
+    # the table and two rows of chunk indices must fit
+    wide = torch.zeros((1, 1, 30000), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        pscan.window_scan(big, pscan.weight_table(2000, 25.0, 0.85, cuda), 64)
+        pscan.window_scan(wide, pscan.weight_table(1, 25.0, 0.85, cuda), 30000)
     assert pscan.max_smem() == 232448
-    assert pscan.LAUNCHES == before + 1
+    assert pscan.LAUNCHES == before + 2
 
 
 def test_windowed_search_on_card_matches_cpu(cuda, tmp_path):

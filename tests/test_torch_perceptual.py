@@ -340,15 +340,22 @@ def test_windowed_smoother_with_its_own_table(windowed_case):
 
 # (h, d, w, chunk, ties): the planted cases of chip_smoke's [perceptual]
 # phase: ties, W not a multiple of chunk, W = 1, chunk 1 and 20, the clamp
-# mean == size near the right edge, chunk wider than W
+# mean == size near the right edge, chunk wider than W; then "specials"
+# (NaN, +0.0 and -0.0 seeded: K4's order key), H = 1 and H < len, D = 33
+# and 200, chunk 1, chunks 33 and 64 (a warp of K4 owns several
+# positions), W = chunk + 1
 PLANTED = [(6, 12, 50, 20, False), (5, 12, 50, 20, True), (4, 7, 1, 20, False),
            (5, 8, 33, 1, True), (4, 40, 45, 20, False), (3, 30, 70, 7, True),
-           (3, 12, 40, 64, False)]
+           (3, 12, 40, 64, False),
+           (5, 12, 50, 20, "specials"), (3, 40, 130, 64, "specials"), (1, 12, 50, 20, False),
+           (3, 12, 60, 20, True), (4, 33, 50, 20, False), (2, 200, 230, 20, False),
+           (3, 12, 20, 1, "specials"), (4, 12, 70, 33, True), (4, 12, 21, 20, False)]
 
 
 @pytest.mark.parametrize("h,d,w,chunk,ties", PLANTED)
 def test_windowed_smoother_on_planted_volumes(h, d, w, chunk, ties):
-    vol = perceptual_volume(np.random.default_rng(w + chunk), h, d, w, ties)
+    vol = perceptual_volume(np.random.default_rng(w + chunk), h, d, w, ties=ties is True,
+                            specials=ties == "specials")
     want = np.asarray(jcost.windowed_smooth_argmin(
         jnp.asarray(vol), JaxPerceptualConfig(max_disparity=d, chunk=chunk)))
     launches = scan.LAUNCHES
