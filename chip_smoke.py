@@ -495,10 +495,20 @@ def flat_pair(h=64, w=96, shift=5, seed=0):
     return np.repeat(row[:, :w], h, axis=0), np.repeat(row[:, shift:w + shift], h, axis=0)
 
 
+def _device_events(prof):
+    """[(name, count, device us)] of the device work one profile saw, read
+    from the raw Kineto events: ``key_averages()`` would first build the
+    tree of every host op, ~1 min for the pose stage's 60k launches and
+    ~2 min for a mesh batch's 120k."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), 1, e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def _pose_profile(estimate, torch):
     """(device kernels launched, device ms, wall ms) of one call, from
     torch.profiler; None for the device numbers if it saw no device work."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -507,21 +517,16 @@ def _pose_profile(estimate, torch):
         estimate()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, device_us = 0, 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            kernels += e.count
-            device_us += getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0.0))
+    events = _device_events(prof)
+    kernels = sum(n for _, n, _ in events)
     if kernels == 0:
         return None, None, wall_ms
-    return kernels, device_us / 1e3, wall_ms
+    return kernels, sum(us for _, _, us in events) / 1e3, wall_ms
 
 
 def _kernel_split(call, torch):
     """Device ms of one call by kernel name (torch.profiler), {} if the
     profiler saw no device work."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call()
@@ -530,12 +535,10 @@ def _kernel_split(call, torch):
         call()
         torch.cuda.synchronize()
     split = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-            name = next((k for k in ("left_layout_kernel", "block_search_costs_kernel",
-                                     "block_search_rows_kernel") if k in e.key), e.key[:40])
-            split[name] = split.get(name, 0.0) + us / 1e3
+    for key, _, us in _device_events(prof):
+        name = next((k for k in ("left_layout_kernel", "block_search_costs_kernel",
+                                 "block_search_rows_kernel") if k in key), key[:40])
+        split[name] = split.get(name, 0.0) + us / 1e3
     return split
 
 
@@ -548,7 +551,6 @@ def _profiled_launches(call, torch):
     """(launches of each kernel of KERNEL_NAMES, device kernels in all,
     device ms) of one call, as torch.profiler sees them; None for the
     launches if it saw no device work."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -556,14 +558,12 @@ def _profiled_launches(call, torch):
         call()
         torch.cuda.synchronize()
     seen, kernels, device_us = dict.fromkeys(KERNEL_NAMES, 0), 0, 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            kernels += e.count
-            device_us += getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0.0))
-            for k, name in KERNEL_NAMES.items():
-                if name in e.key:
-                    seen[k] += e.count
+    for key, n, us in _device_events(prof):
+        kernels += n
+        device_us += us
+        for k, name in KERNEL_NAMES.items():
+            if name in key:
+                seen[k] += n
     return (seen if kernels else None), kernels, device_us / 1e3
 
 
@@ -585,12 +585,34 @@ def _true_disparity(H_lr, F, h, w):
     return gt, np.where(inside.reshape(h, w), 255, 0).astype(np.uint8)
 
 
+def _same_batch_result(got, want, what):
+    """Two BatchResults equal field by field, bit for bit."""
+    for name in ("disparity", "depth", "pose_ok"):
+        g, w = getattr(got, name), getattr(want, name)
+        if (g is None) != (w is None) or (g is not None and not np.array_equal(g, w)):
+            raise AssertionError(f"{what}: {name} differs")
+    if got.metrics != want.metrics:
+        raise AssertionError(f"{what}: metrics differ")
+    for name, g, w in zip(got.pose._fields, got.pose, want.pose):
+        a, b = g.cpu().numpy(), w.cpu().numpy()
+        same = np.array_equal(a, b) or (a.dtype.kind == "f"
+                                         and np.array_equal(a, b, equal_nan=True))
+        if g.device != w.device or not same:
+            raise AssertionError(f"{what}: pose field {name} differs")
+
+
 def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, w=900):
     """Phase 10: ``run_batch`` on three posed pairs and one whose pose
-    fails, (h, w), at ``config``; returns the pairs and the K1/K1b launch
-    counts of the checked run."""
+    fails, (h, w), at ``config``, unsharded and on a data=2 mesh over
+    ``dev`` x 2, and ``run_batches`` on that mesh; returns the pairs and the
+    K1/K1b launch counts of the checked run."""
     from stereo_reconstruction_tpu_torch.data.records import StereoPair, pad_to
-    from stereo_reconstruction_tpu_torch.pipeline_batch import batch_uniforms, run_batch
+    from stereo_reconstruction_tpu_torch.parallel import make_mesh
+    from stereo_reconstruction_tpu_torch.pipeline_batch import (
+        batch_uniforms,
+        run_batch,
+        run_batches,
+    )
 
     t_phase = time.perf_counter()
     pairs = []
@@ -655,17 +677,73 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
                              f"{B} K1b")
     print(f"[batch] torch.profiler in run_batch B={B}: {seen}; {n_kernels} device "
           f"kernels in all, {device_ms:.1f} ms device time", flush=True)
-    for b in (1, B):
-        runs = []
-        for _ in range(4):
-            t0 = time.perf_counter()
-            r = run_batch(pairs[:b], config, uniforms=u[:b], device=dev)
-            runs.append(dict(r.timings, wall=time.perf_counter() - t0))
-        runs = runs[1:]                   # the first run is the warm-up
-        med = {k: statistics.median(t[k] for t in runs) * 1e3 for k in runs[0]}
-        print(f"[batch] {smi}: run_batch B={b} stage ms (median of 3 after a warm-up): "
+
+    # the batch over a mesh's data axis: two shards of two pairs, both on dev
+    mesh = make_mesh(data=2, tile=1, devices=[dev, dev])
+    reset_counts()
+    sharded = run_batch(pairs, config, uniforms=u, mesh=mesh)
+    if counts() != expected(K1=B, K1b=B):
+        raise AssertionError(f"run_batch(mesh=) launches {counts()}: want {B} K1 and {B} K1b")
+    if sharded.disparity.shape != padded or not np.isfinite(sharded.disparity).all():
+        raise AssertionError(f"run_batch(mesh=): bad disparity {sharded.disparity.shape}")
+    if sharded.pose_ok.tolist() != [True, True, True, False]:
+        raise AssertionError(f"run_batch(mesh=) pose_ok {sharded.pose_ok.tolist()}")
+    if not (np.array_equal(sharded.disparity, np.rint(sharded.disparity))
+            and np.abs(sharded.disparity).max() < 2**15):
+        raise AssertionError("run_batch(mesh=) disparities are not int16-exact")
+    if set(sharded.timings) != set(res.timings):
+        raise AssertionError(f"run_batch(mesh=) timings {sorted(sharded.timings)}")
+    half = B // 2
+    for i in range(2):
+        rows = slice(i * half, (i + 1) * half)
+        alone = run_batch(pairs[rows], config, uniforms=u[rows], device=dev)
+        part = dataclasses.replace(
+            sharded, disparity=sharded.disparity[rows], depth=sharded.depth[rows],
+            pose_ok=sharded.pose_ok[rows], metrics=sharded.metrics[rows],
+            pose=type(sharded.pose)(*(f[rows] for f in sharded.pose)))
+        _same_batch_result(part, alone, f"run_batch(mesh=) shard {i} vs its pairs alone")
+    agree_mesh = [float(np.mean(sharded.disparity[i] == res.disparity[i])) for i in range(B)]
+    print(f"[batch] run_batch B={B} on a data=2, tile=1 mesh over {dev} x 2: pose_ok "
+          f"{sharded.pose_ok.astype(int).tolist()}, {B} K1 and {B} K1b launches, int16-exact; "
+          f"each shard bit-equal to its {half} pairs run alone with their draws; disparity "
+          f"agreement with the unsharded B={B} {[round(a, 6) for a in agree_mesh]}", flush=True)
+    if min(agree_mesh) < 0.995:
+        raise AssertionError("run_batch(mesh=) agreement with the unsharded run below 99.5%")
+    seen, n_kernels, device_ms = _profiled_launches(
+        lambda: run_batch(pairs, config, uniforms=u, mesh=mesh), torch)
+    if seen is None:
+        raise AssertionError("the profiler saw no device work in run_batch(mesh=)")
+    if seen != expected(K1=B, K1b=B):
+        raise AssertionError(f"the profiler saw {seen} in run_batch(mesh=): want {B} K1 "
+                             f"and {B} K1b")
+    print(f"[batch] torch.profiler in run_batch(mesh=) B={B}: {seen}; {n_kernels} device "
+          f"kernels in all, {device_ms:.1f} ms device time", flush=True)
+    reset_counts()
+    piped = run_batches([pairs, pairs], config, mesh=mesh)
+    if counts() != expected(K1=2 * B, K1b=2 * B):
+        raise AssertionError(f"run_batches(mesh=) launches {counts()}: want {2 * B} each")
+    _same_batch_result(piped[0], sharded, "run_batches(mesh=) batch 0 vs run_batch(mesh=)")
+    _same_batch_result(piped[1], run_batch(pairs, config, uniforms=batch_uniforms(config, B, 1),
+                                           mesh=mesh),
+                       "run_batches(mesh=) batch 1 vs run_batch(mesh=)")
+    print(f"[batch] run_batches(mesh=) on two batches of {B}: {2 * B} K1 and {2 * B} K1b "
+          f"launches, each batch bit-equal to run_batch(mesh=) with its draws; batch 1 "
+          f"pose_ok {piped[1].pose_ok.astype(int).tolist()}", flush=True)
+
+    # stage ms: B=1, then B=4 unsharded and on the mesh in turn
+    runs = {"B=1": [], f"B={B}": [], f"B={B} on the mesh": []}
+    calls = [("B=1", pairs[:1], None)] * 4 + [(f"B={B}", pairs, None),
+                                              (f"B={B} on the mesh", pairs, mesh)] * 4
+    for key, ps, m in calls:
+        t0 = time.perf_counter()
+        r = run_batch(ps, config, uniforms=u[:len(ps)], mesh=m, device=dev)
+        runs[key].append(dict(r.timings, wall=time.perf_counter() - t0, pairs=len(ps)))
+    for key, rs in runs.items():
+        rs = rs[1:]                        # the first run of each is the warm-up
+        med = {k: statistics.median(t[k] for t in rs) * 1e3 for k in rs[0] if k != "pairs"}
+        print(f"[batch] {smi}: run_batch {key} stage ms (median of 3 after a warm-up): "
               + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
-              + f"; {b / (med['wall'] / 1e3):.3f} pairs/s", flush=True)
+              + f"; {rs[0]['pairs'] / (med['wall'] / 1e3):.3f} pairs/s", flush=True)
     print(f"[batch] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return pairs, launches
 

@@ -196,7 +196,7 @@ def _cmd_reconstruct(args):
 def _cmd_bench(args):
     raise NotImplementedError(
         "bench is not ported yet: the port's benchmark comes in its own PR "
-        "(ROADMAP Queue 1 item 2, 'the port's benchmark')")
+        "(ROADMAP Queue 1 item 1, 'the port's benchmark')")
 
 
 if __name__ == "__main__":

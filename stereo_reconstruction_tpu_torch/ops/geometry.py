@@ -35,6 +35,16 @@ def kron_vec(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a[..., :, None] * b[..., None, :]).reshape(*a.shape[:-1], -1)
 
 
+def to_homogeneous(points: torch.Tensor) -> torch.Tensor:
+    """(..., 2, N) pixel coordinates -> (..., 3, N) homogeneous."""
+    return torch.cat([points, torch.ones_like(points[..., :1, :])], dim=-2)
+
+
+def from_homogeneous(points: torch.Tensor) -> torch.Tensor:
+    """(..., 3, N) -> (..., 2, N), dividing by the last row."""
+    return points[..., :2, :] / points[..., 2:3, :]
+
+
 def normalize_points(K: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """K^{-1} @ points for an upper-triangular K by exact back-substitution
     (reference eight_point.cpp:149-154). K (..., 3, 3), points (..., 3, N)."""
@@ -71,6 +81,26 @@ def pixel_error(projected: torch.Tensor, observed: torch.Tensor) -> torch.Tensor
     """Per-point pixel error over the first two rows (reference
     calculateEuclideanPixelError, eight_point.cpp:363-370)."""
     return column_norm(projected[..., :2, :] - observed[..., :2, :])
+
+
+def average_reconstruction_error(
+    matches_left: torch.Tensor,
+    matches_right: torch.Tensor,
+    K_left: torch.Tensor,
+    K_right: torch.Tensor,
+    rotation: torch.Tensor,
+    translation: torch.Tensor,
+    points_left_3d: torch.Tensor,
+) -> torch.Tensor:
+    """Two-view mean reprojection error (reference utils.cpp:98-120).
+
+    Note the reference uses the *3-row* homogeneous difference norm (its
+    projected third row is exactly 1 and the matches' third row is 1, so it
+    equals the 2-row pixel norm)."""
+    err_left = column_norm(project(K_left, points_left_3d) - matches_left).mean(dim=-1)
+    points_right = transform(rotation, translation, points_left_3d)
+    err_right = column_norm(project(K_right, points_right) - matches_right).mean(dim=-1)
+    return (err_left + err_right) / 2.0
 
 
 def fundamental_from_essential(E, K_left, K_right) -> torch.Tensor:

@@ -182,6 +182,22 @@ class Mesh(_MeshBase):
     def device(self, coords: dict) -> torch.device:
         return self.devices[coords["data"]][coords["tile"]]
 
+    def data_blocks(self, batch: int) -> list:
+        """[(rows, device)] for each data index i in order: the slice of
+        batch rows ``[i * batch / data, (i + 1) * batch / data)`` and the
+        device of shard (i, 0). JAX's spec ``P("data", None, ...)``
+        replicates each block over ``tile``, so every tile of a data index
+        computes the same; here it is computed once, on its ``tile=0``
+        device, which gives the same result. Raises ``ValueError`` where
+        ``batch`` is not a multiple of ``data``, as JAX's ``device_put``
+        does."""
+        n = self.shape["data"]
+        if batch % n:
+            raise ValueError(f"a batch of {batch} does not split into data={n} shards")
+        size = batch // n
+        return [(slice(i * size, (i + 1) * size), self.device(dict(data=i, tile=0)))
+                for i in range(n)]
+
     def run(self, body, args, in_specs):
         """{(data, tile): the body's return value} of every shard."""
         shards, coros, values = {}, {}, {}

@@ -186,10 +186,15 @@ def _cached_module(weights_path: str, seed: int, device: torch.device) -> VGG16F
     return VGG16Features.from_params(get_params(weights_path, seed), device)
 
 
-def vgg_module(weights_path: str = "", seed: int = 0, device="cpu") -> VGG16Features:
+def vgg_module(weights_path: str = "", seed: int = 0, device="cuda") -> VGG16Features:
     """The tower of ``get_params(weights_path, seed)`` on ``device``, built
-    once per ``(weights_path, seed, device)``."""
+    once per ``(weights_path, seed, device)``. Defaults to the card, as the
+    entry points do, and raises without one: pass ``device="cpu"`` for the
+    CPU."""
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available; "
+                           "pass device='cpu' to run on the CPU")
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return _cached_module(weights_path, seed, device)

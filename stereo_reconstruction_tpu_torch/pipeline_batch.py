@@ -37,6 +37,20 @@ On CUDA every stage is asynchronous up to its first ``.cpu()``, the pose
 outputs' being the sync point (``np.asarray`` in JAX); ``run_batches``
 orders the stages so batch i+1's upload and pose are queued before batch
 i's host geometry waits.
+
+``mesh=``, a one-process ``parallel.mesh.Mesh``, splits the batch over its
+``data`` axis, as JAX shards the images, intrinsics and keys with
+``P("data", ...)``: data shard i takes the i-th run of B / data pairs, on
+the device of mesh shard (i, 0) (``Mesh.data_blocks``), with its slice of
+the draws. Every shard is padded to the whole batch's (hmax, wmax), so it
+computes what ``run_batch`` of its pairs alone, padded to that shape and
+with those draws, computes, bit for bit; against the unsharded batch the
+result moves only as far as BA's batched solves round apart at another B.
+Every shard's pose is queued before the host waits on the first, and the
+host geometry, the dense stage and the downloads then go shard by shard in
+data order. A multi-process mesh (``multihost.ProcessGroupMesh``) is
+refused: the host Loop-Zhang stage reads every pair's F, which one process
+of a process group does not hold, and JAX has no such path either.
 """
 
 from __future__ import annotations
@@ -54,6 +68,8 @@ from stereo_reconstruction_tpu_torch.data.records import StereoPair, pad_to
 from stereo_reconstruction_tpu_torch.ops import metrics as metrics_mod
 from stereo_reconstruction_tpu_torch.ops.features import Keypoints, detect_and_describe_batch
 from stereo_reconstruction_tpu_torch.ops.warp import warp_perspective
+from stereo_reconstruction_tpu_torch.parallel.mesh import Mesh
+from stereo_reconstruction_tpu_torch.parallel.multihost import ProcessGroupMesh
 from stereo_reconstruction_tpu_torch.pipeline import _device, compute_disparity, \
     pose_from_keypoints
 from stereo_reconstruction_tpu_torch.pose.pipeline import PoseEstimate
@@ -121,9 +137,16 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def _add(timings: Dict[str, float], key: str, seconds: float) -> None:
+    """A stage's clock: the shards of a batch run each stage in turn on the
+    host, so their times add up to the stage's span."""
+    timings[key] = timings.get(key, 0.0) + seconds
+
+
 @dataclasses.dataclass
 class _Staged:
-    """Per-batch state across the dispatch and sync stages."""
+    """One shard of a batch across the dispatch and sync stages (the
+    whole batch without a mesh); the shards of a batch share ``timings``."""
     pairs: Sequence[StereoPair]
     padded: list
     hmax: int
@@ -144,38 +167,58 @@ class _Staged:
     gt_idx: Optional[list] = None
 
 
-def _stage_upload(pairs, config: PipelineConfig, uniforms, device) -> _Staged:
-    """Pad and stack on the host and queue the uploads."""
+def _shard_blocks(mesh, batch: int, device) -> list:
+    """[(rows, device)] of a batch of ``batch`` pairs: the whole batch on
+    ``device`` without a mesh, else ``mesh.data_blocks``."""
+    if mesh is None:
+        return [(slice(0, batch), _device(device))]
+    if isinstance(mesh, ProcessGroupMesh):
+        raise NotImplementedError(
+            "run_batch over a multi-process mesh: the host Loop-Zhang stage reads "
+            "every pair's F, which one process of the group does not hold (the JAX "
+            "package has no such path either); use a one-process make_mesh")
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+    return [(rows, _device(dev)) for rows, dev in mesh.data_blocks(batch)]
+
+
+def _stage_upload(pairs, config: PipelineConfig, uniforms, blocks) -> List[_Staged]:
+    """Pad the whole batch to one shape, stack each shard's pairs on the
+    host and queue its uploads to its device."""
     B = len(pairs)
     hmax = max(p.height for p in pairs)
     wmax = max(p.width for p in pairs)
     hmax += (-hmax) % 8
     wmax += (-wmax) % 128
-    padded = [pad_to(p, hmax, wmax) for p in pairs]
     if uniforms is None:
         uniforms = batch_uniforms(config, B)
     uniforms = torch.as_tensor(uniforms, dtype=torch.float32)
     want = (B, config.ransac.num_hypotheses, config.frontend.max_keypoints)
     if tuple(uniforms.shape) != want:
         raise ValueError(f"uniforms of shape {tuple(uniforms.shape)}, want {want}")
+    timings: Dict[str, float] = {}
+    shards = []
+    for rows, device in blocks:
+        padded = [pad_to(p, hmax, wmax) for p in pairs[rows]]
 
-    def stack(field, dtype=None):
-        return _to_device(np.stack([np.asarray(getattr(p, field), dtype) for p in padded]),
-                          device)
+        def stack(field, dtype=None):
+            return _to_device(np.stack([np.asarray(getattr(p, field), dtype)
+                                        for p in padded]), device)
 
-    return _Staged(
-        pairs=pairs, padded=padded, hmax=hmax, wmax=wmax, device=device,
-        L=stack("image_left").to(torch.float32),
-        R=stack("image_right").to(torch.float32),
-        KL=stack("intrinsics_left", np.float32),
-        KR=stack("intrinsics_right", np.float32),
-        uniforms=_to_device(uniforms.numpy(), device), timings={})
+        shards.append(_Staged(
+            pairs=pairs[rows], padded=padded, hmax=hmax, wmax=wmax, device=device,
+            L=stack("image_left").to(torch.float32),
+            R=stack("image_right").to(torch.float32),
+            KL=stack("intrinsics_left", np.float32),
+            KR=stack("intrinsics_right", np.float32),
+            uniforms=_to_device(uniforms[rows].numpy(), device), timings=timings))
+    return shards
 
 
 def _stage_pose_dispatch(st: _Staged, config: PipelineConfig) -> None:
     t0 = time.perf_counter()
     st.pose = pose_batch(st.L, st.R, st.KL, st.KR, st.uniforms, config)
-    st.timings["pose_dispatch"] = time.perf_counter() - t0
+    _add(st.timings, "pose_dispatch", time.perf_counter() - t0)
 
 
 def _stage_host_geometry(st: _Staged, config: PipelineConfig) -> None:
@@ -186,7 +229,7 @@ def _stage_host_geometry(st: _Staged, config: PipelineConfig) -> None:
     F_all = st.pose.fundamental.cpu().numpy().astype(np.float64)     # sync point
     valid = st.pose.valid.cpu().numpy()
     st.err_ba = st.pose.reproj_error_ba.cpu().numpy()
-    st.timings["pose"] = time.perf_counter() - t0
+    _add(st.timings, "pose", time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     pose_ok = valid & (st.err_ba < 50.0)
@@ -207,7 +250,7 @@ def _stage_host_geometry(st: _Staged, config: PipelineConfig) -> None:
         Hl[i] = homs.H_left.astype(np.float32)
         Hr[i] = homs.H_right.astype(np.float32)
     st.pose_ok = pose_ok
-    st.timings["loop_zhang_host"] = time.perf_counter() - t0
+    _add(st.timings, "loop_zhang_host", time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     canvas = static_canvas((st.hmax, st.wmax), (st.hmax, st.wmax), config.rectify)
@@ -242,17 +285,17 @@ def _stage_host_geometry(st: _Staged, config: PipelineConfig) -> None:
                        st.device),
             _to_device(np.asarray([float(st.pairs[i].ndisp or 1e9) for i in st.gt_idx],
                                   np.float32), st.device))
-    st.timings["dense_dispatch"] = time.perf_counter() - t0
+    _add(st.timings, "dense_dispatch", time.perf_counter() - t0)
 
 
 def _stage_collect(st: _Staged, fetch_depth: bool) -> BatchResult:
-    """Wait for the downloads and assemble the result."""
+    """Wait for one shard's downloads and assemble its result."""
     B = len(st.pairs)
     t0 = time.perf_counter()
     disp_np = st.disp_i16.cpu().numpy().astype(np.float32)
     depth_np = st.depth.cpu().numpy() if fetch_depth else None
-    st.timings["dense"] = (time.perf_counter() - t0
-                           + st.timings.pop("dense_dispatch", 0.0))
+    _add(st.timings, "dense", time.perf_counter() - t0
+         + st.timings.pop("dense_dispatch", 0.0))
 
     metrics: List[Dict[str, float]] = [
         {"pose_ok": float(st.pose_ok[i]), "reproj_error_ba": float(st.err_ba[i])}
@@ -266,11 +309,22 @@ def _stage_collect(st: _Staged, fetch_depth: bool) -> BatchResult:
                        pose_ok=st.pose_ok, metrics=metrics, timings=st.timings)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (batch sharding over devices) is not ported yet: ROADMAP "
-            "Queue 1 item 7 (multi-device) brings it")
+def _collect(shards: List[_Staged], fetch_depth: bool) -> BatchResult:
+    """Every shard's result in data order, concatenated along B: the
+    arrays on the host, each pose field on the first shard's device (as
+    ``Mesh.assemble`` places a global output)."""
+    parts = [_stage_collect(st, fetch_depth) for st in shards]
+    if len(parts) == 1:
+        return parts[0]
+    first = shards[0].device
+    return BatchResult(
+        disparity=np.concatenate([r.disparity for r in parts]),
+        depth=np.concatenate([r.depth for r in parts]) if fetch_depth else None,
+        pose=PoseEstimate(*(torch.cat([f.to(first) for f in fields])
+                            for fields in zip(*(r.pose for r in parts)))),
+        pose_ok=np.concatenate([r.pose_ok for r in parts]),
+        metrics=[m for r in parts for m in r.metrics],
+        timings=parts[0].timings)
 
 
 def run_batch(
@@ -286,14 +340,20 @@ def run_batch(
 
     ``uniforms``: the RANSAC draws, (B, num_hypotheses, max_keypoints);
     by default ``batch_uniforms(config, B)``. ``fetch_depth=False`` skips
-    the depth download (``BatchResult.depth`` is None). ``mesh`` is not
-    ported (``NotImplementedError``)."""
-    _no_mesh(mesh)
-    device = _device(device)
-    st = _stage_upload(pairs, config, uniforms, device)
-    _stage_pose_dispatch(st, config)
-    _stage_host_geometry(st, config)
-    res = _stage_collect(st, fetch_depth)
+    the depth download (``BatchResult.depth`` is None).
+
+    ``mesh``: a one-process ``parallel.mesh.Mesh`` (``make_mesh``) splits
+    the batch over its ``data`` axis, data shard i on the device of mesh
+    shard (i, 0); ``device`` is then not consulted. B must be a multiple of
+    ``data`` (``ValueError``); a ``multihost.ProcessGroupMesh`` raises
+    ``NotImplementedError``. The result is the whole batch's, in order;
+    its timings span all shards."""
+    shards = _stage_upload(pairs, config, uniforms, _shard_blocks(mesh, len(pairs), device))
+    for st in shards:
+        _stage_pose_dispatch(st, config)
+    for st in shards:
+        _stage_host_geometry(st, config)
+    res = _collect(shards, fetch_depth)
     res.timings["pose"] += res.timings.pop("pose_dispatch", 0.0)
     return res
 
@@ -306,28 +366,31 @@ def run_batches(
     device="cuda",
 ) -> List[BatchResult]:
     """Several batches, software-pipelined: batch i+1's upload and pose
-    are queued before batch i's host geometry waits for its pose, and
-    batch i's downloads wait while i+1 computes. Batch i's results equal
-    ``run_batch(batches[i], config, batch_uniforms(config, len(batches[i]),
-    i))``; its timings keep ``pose_dispatch`` apart from ``pose``."""
-    _no_mesh(mesh)
+    (every shard's) are queued before batch i's host geometry waits for
+    its pose, and batch i's downloads wait while i+1 computes. Batch i's
+    results equal ``run_batch(batches[i], config, batch_uniforms(config,
+    len(batches[i]), i), mesh=mesh)``; its timings keep ``pose_dispatch``
+    apart from ``pose``."""
     if not batches:
         return []
-    device = _device(device)
+    blocks = [_shard_blocks(mesh, len(b), device) for b in batches]
     n = len(batches)
-    sts: List[Optional[_Staged]] = [None] * n
+    sts: List[Optional[List[_Staged]]] = [None] * n
     results: List[Optional[BatchResult]] = [None] * n
     for i in range(n):
         sts[i] = _stage_upload(batches[i], config,
-                               batch_uniforms(config, len(batches[i]), i), device)
-        _stage_pose_dispatch(sts[i], config)
+                               batch_uniforms(config, len(batches[i]), i), blocks[i])
+        for st in sts[i]:
+            _stage_pose_dispatch(st, config)
         if i >= 1:
-            _stage_host_geometry(sts[i - 1], config)
+            for st in sts[i - 1]:
+                _stage_host_geometry(st, config)
         if i >= 2:
-            results[i - 2] = _stage_collect(sts[i - 2], fetch_depth)
+            results[i - 2] = _collect(sts[i - 2], fetch_depth)
             sts[i - 2] = None
-    _stage_host_geometry(sts[n - 1], config)
+    for st in sts[n - 1]:
+        _stage_host_geometry(st, config)
     if n >= 2:
-        results[n - 2] = _stage_collect(sts[n - 2], fetch_depth)
-    results[n - 1] = _stage_collect(sts[n - 1], fetch_depth)
+        results[n - 2] = _collect(sts[n - 2], fetch_depth)
+    results[n - 1] = _collect(sts[n - 1], fetch_depth)
     return results

@@ -98,3 +98,15 @@ def eight_point(
     return EightPointResult(R, T, geo.essential_from_pose(R, T), pose_matrix(R, T),
                             take(depths4), take(pl4), take(pr4), valid)
 
+
+def reprojection_errors(result: EightPointResult, matches_right: torch.Tensor,
+                        K_right: torch.Tensor) -> torch.Tensor:
+    """Per-point pixel error of the reconstructed points projected into the
+    right camera (reference RANSAC scoring, eight_point.cpp:282-287)."""
+    return geo.pixel_error(geo.project(K_right, result.points_right), matches_right)
+
+
+def fundamental_matrix(result: EightPointResult, K_left, K_right) -> torch.Tensor:
+    """F of the result's essential matrix, at unit Frobenius norm (each
+    matrix of a batch on its own)."""
+    return geo.fundamental_from_essential(result.essential, K_left, K_right)

@@ -23,7 +23,8 @@
   pose slightly and flips 0.03% of the disparities (measured agreement
   0.99974).
 * ``run_batches`` equals ``run_batch`` per batch under the port's draw
-  rule (``batch_uniforms``); ``mesh=`` raises.
+  rule (``batch_uniforms``); a ``mesh=`` that is not a ``Mesh`` raises
+  (``tests/test_torch_batch_mesh.py`` runs the mesh path).
 """
 
 import os
@@ -234,9 +235,10 @@ def test_batch_uniforms_rule():
 def test_run_batch_refuses_a_mesh_and_bad_draws():
     scene, _ = _pairs()
     pair = StereoPair(**scene)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # a mesh is a parallel.mesh.Mesh (tests/test_torch_batch_mesh.py runs one)
+    with pytest.raises(TypeError, match="mesh must be"):
         tpb.run_batch([pair], CONFIG, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="mesh must be"):
         tpb.run_batches([[pair]], CONFIG, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="uniforms"):
         tpb.run_batch([pair], CONFIG, uniforms=torch.zeros(2, 3, 4), device="cpu")

@@ -486,6 +486,29 @@ def test_run_batches_on_card_equals_run_batch(cuda):
         assert piped[i].depth is None
 
 
+def test_run_batch_on_a_mesh_equals_its_shards_run_alone(cuda):
+    """A data=2 mesh over the card twice: one K1 and one K1b per pair, and
+    each shard bit-equal to its two pairs run alone with their draws."""
+    from stereo_reconstruction_tpu_torch.parallel import make_mesh
+
+    s0, s1, flat = _batch_pairs()
+    pairs = [s0, flat, s1, flat]
+    u = batch_uniforms(BATCH_CONFIG, 4)
+    before = _launches()
+    res = run_batch(pairs, BATCH_CONFIG, uniforms=u,
+                    mesh=make_mesh(data=2, tile=1, devices=[cuda, cuda]))
+    assert _launches() == (before[0] + 4, before[1] + 4, before[2], before[3])
+    assert res.pose_ok.tolist() == [True, False, True, False]
+    for i in range(2):
+        rows = slice(2 * i, 2 * i + 2)
+        alone = run_batch(pairs[rows], BATCH_CONFIG, uniforms=u[rows], device=cuda)
+        np.testing.assert_array_equal(res.disparity[rows], alone.disparity)
+        np.testing.assert_array_equal(res.depth[rows], alone.depth)
+        assert res.metrics[rows] == alone.metrics
+        for name, g, w in zip(alone.pose._fields, res.pose, alone.pose):
+            np.testing.assert_array_equal(g[rows].cpu().numpy(), w.cpu().numpy(), name)
+
+
 VARIANTS = {
     "sad": dict(cost="sad"),
     "ncc": dict(cost="ncc"),

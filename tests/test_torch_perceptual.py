@@ -191,6 +191,13 @@ def test_vgg_module_is_cached_per_weights_seed_and_device(full_params, tmp_path)
         tvgg.as_module(he, "meta")
 
 
+def test_vgg_module_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tvgg.vgg_module()
+
+
 def test_normalize_features_equal_jax():
     feat = np.random.default_rng(0).normal(size=(8, 5, 7)).astype(np.float32)
     feat[:, 0, 0] = 0.0                       # a zero column: eps outside the sqrt
