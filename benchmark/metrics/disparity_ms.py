@@ -1,0 +1,8 @@
+"""disparity_ms: the median of ``run_pair``'s ``timings["disparity"]`` over the
+window, in ms (a program span)."""
+
+from benchmark.metrics._spans import median_ms
+
+
+def read(ctx):
+    return median_ms(ctx, "disparity")
