@@ -47,6 +47,7 @@ from stereo_reconstruction_tpu_torch.perceptual.vgg import (
     stage_lins,
     vgg16_features,
 )
+from stereo_reconstruction_tpu_torch.utils.profiling import span
 
 
 def _box_mean(cost: torch.Tensor, win: int) -> torch.Tensor:
@@ -219,23 +220,26 @@ def windowed_lpips_cost_volume(
     volume = torch.empty((h, D, w), dtype=torch.float32, device=dev)
     for b in range(n_blocks):
         y0 = b * R
-        ls = module(_windows(padded_l, y0, R, win, w))
-        rs = module(_windows(padded_r, y0, R, win, w))
-        total = torch.zeros((R, D, w), dtype=torch.float32, device=dev)
-        for fl, fr, lin in zip(ls, rs, lins):
-            nl = normalize_features(fl, dim=1)
-            nr = normalize_features(fr, dim=1)
-            sp = nl.shape[2] * nl.shape[3]
-            lin = lin[None, :, None, None]
-            wl = nl * lin                                         # lin folded into left
-            t_l = torch.sum(wl * nl, dim=(1, 2, 3)).reshape(R, w) / sp
-            t_r = torch.sum(nr * nr * lin, dim=(1, 2, 3)).reshape(R, w) / sp
-            gram = torch.bmm(nr.reshape(R, w, -1), wl.reshape(R, w, -1).transpose(1, 2)) / sp
-            cross = torch.gather(gram, 2, band.expand(R, w, D))   # (R, W, D)
-            total = total + (t_r[:, None, :] + t_l[:, band].transpose(1, 2)
-                             - 2.0 * cross.transpose(1, 2))
-        rows = min(R, h - y0)
-        volume[y0:y0 + rows] = torch.where(valid, total[:rows], torch.inf)
+        with span("perceptual.tower", dev):
+            ls = module(_windows(padded_l, y0, R, win, w))
+            rs = module(_windows(padded_r, y0, R, win, w))
+        with span("perceptual.distance", dev):
+            total = torch.zeros((R, D, w), dtype=torch.float32, device=dev)
+            for fl, fr, lin in zip(ls, rs, lins):
+                nl = normalize_features(fl, dim=1)
+                nr = normalize_features(fr, dim=1)
+                sp = nl.shape[2] * nl.shape[3]
+                lin = lin[None, :, None, None]
+                wl = nl * lin                                     # lin folded into left
+                t_l = torch.sum(wl * nl, dim=(1, 2, 3)).reshape(R, w) / sp
+                t_r = torch.sum(nr * nr * lin, dim=(1, 2, 3)).reshape(R, w) / sp
+                gram = torch.bmm(nr.reshape(R, w, -1),
+                                 wl.reshape(R, w, -1).transpose(1, 2)) / sp
+                cross = torch.gather(gram, 2, band.expand(R, w, D))   # (R, W, D)
+                total = total + (t_r[:, None, :] + t_l[:, band].transpose(1, 2)
+                                 - 2.0 * cross.transpose(1, 2))
+            rows = min(R, h - y0)
+            volume[y0:y0 + rows] = torch.where(valid, total[:rows], torch.inf)
     return volume
 
 

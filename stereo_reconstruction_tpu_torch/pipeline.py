@@ -19,7 +19,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -52,6 +51,7 @@ from stereo_reconstruction_tpu_torch.rectify.rectifier import (
     disparity_to_original_frame,
     rectify_pair,
 )
+from stereo_reconstruction_tpu_torch.utils.profiling import StageTimer, span
 
 
 @dataclasses.dataclass
@@ -71,11 +71,6 @@ def _device(device) -> torch.device:
         raise RuntimeError(f"device {device} requested but CUDA is not available; "
                            "pass device='cpu' to run on the CPU")
     return device
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def pose_from_keypoints(kp_left: Keypoints, kp_right: Keypoints, K_left: torch.Tensor,
@@ -136,12 +131,13 @@ def compute_disparity(left, right, config: PipelineConfig) -> torch.Tensor:
     LPIPS search (reference notebook cells 6-10, BASELINE config 3) with
     ``config.matcher.max_disparity`` and the VGG weights of
     ``config.perceptual.weights_path`` (the seeded He-init ones without)."""
-    if config.matcher.cost == "perceptual":
-        pcfg = dataclasses.replace(config.perceptual,
-                                   max_disparity=config.matcher.max_disparity)
-        module = vgg_module(pcfg.weights_path, seed=config.seed, device=right.device)
-        return perceptual_window_search(module, left, right, pcfg)
-    return block_search_right(left, right, config.matcher)
+    with span("compute_disparity"):
+        if config.matcher.cost == "perceptual":
+            pcfg = dataclasses.replace(config.perceptual,
+                                       max_disparity=config.matcher.max_disparity)
+            module = vgg_module(pcfg.weights_path, seed=config.seed, device=right.device)
+            return perceptual_window_search(module, left, right, pcfg)
+        return block_search_right(left, right, config.matcher)
 
 
 def _reconstruct(pair: StereoPair, disparity: torch.Tensor,
@@ -155,13 +151,11 @@ def _reconstruct(pair: StereoPair, disparity: torch.Tensor,
     )
     focal = float(np.asarray(pair.intrinsics_right)[0, 0])
     depth = disparity_to_depth(disp_clean, focal, config.recon.baseline)
-    grid = backproject(
-        torch.as_tensor(np.asarray(pair.image_right), device=device),
-        depth,
-        torch.as_tensor(np.asarray(pair.intrinsics_right), dtype=torch.float32,
-                        device=device),
-    )
-    return grid, depth
+    with span("recon.upload"):
+        image = torch.as_tensor(np.asarray(pair.image_right), device=device)
+        K = torch.as_tensor(np.asarray(pair.intrinsics_right), dtype=torch.float32,
+                            device=device)
+    return backproject(image, depth, K), depth
 
 
 def run_pair(
@@ -185,109 +179,104 @@ def run_pair(
     ``backwarp_compat_left`` back-warps disparity with the LEFT homography
     like the reference (rectification.cpp:78-88)."""
     device = _device(device)
-    timings: Dict[str, float] = {}
+    timer = StageTimer()
+    with span("run_pair"):
+        pose = None
+        with timer.stage("pose", device if fixed_F is None else None):
+            if fixed_F is None:
+                pose = estimate_pose(pair, config, device, uniforms)
 
-    t0 = time.perf_counter()
-    pose = None
-    if fixed_F is None:
-        pose = estimate_pose(pair, config, device, uniforms)
-        _sync(device)
-    timings["pose"] = time.perf_counter() - t0
+        # a degenerate pose (cheirality failure, non-finite or huge reprojection
+        # error) would rectify into garbage: match the raw pair instead
+        # (pose_estimation.cpp:84 throws there)
+        pose_ok = fixed_F is not None or (
+            bool(pose.valid) and float(pose.reproj_error_ba) < 50.0)
 
-    # a degenerate pose (cheirality failure, non-finite or huge reprojection
-    # error) would rectify into garbage: match the raw pair instead
-    # (pose_estimation.cpp:84 throws there)
-    pose_ok = fixed_F is not None or (
-        bool(pose.valid) and float(pose.reproj_error_ba) < 50.0)
+        F = np.eye(3)
+        with timer.stage("rectify", device if pose_ok else None):
+            if pose_ok:
+                F = (np.asarray(fixed_F, np.float64) if fixed_F is not None
+                     else pose.fundamental.cpu().numpy().astype(np.float64))
+                with span("rectify.upload"):
+                    left = torch.as_tensor(np.asarray(pair.image_left), device=device)
+                    right = torch.as_tensor(np.asarray(pair.image_right), device=device)
+                rect = rectify_pair(left, right, F, config=config.rectify)
 
-    t0 = time.perf_counter()
-    F = np.eye(3)
-    if pose_ok:
-        F = (np.asarray(fixed_F, np.float64) if fixed_F is not None
-             else pose.fundamental.cpu().numpy().astype(np.float64))
-        rect = rectify_pair(
-            torch.as_tensor(np.asarray(pair.image_left), device=device),
-            torch.as_tensor(np.asarray(pair.image_right), device=device),
-            F,
-            config=config.rectify,
-        )
-        _sync(device)
-    timings["rectify"] = time.perf_counter() - t0
+        with timer.stage("disparity", device):
+            if pose_ok:
+                disp_rect = compute_disparity(rect.left, rect.right, config)
+                disparity = disparity_to_original_frame(
+                    disp_rect,
+                    rect.homographies.H_right,
+                    (pair.height, pair.width),
+                    compat_left_homography=(rect.homographies.H_left
+                                            if backwarp_compat_left else None),
+                )
+            else:
+                disparity = compute_disparity(
+                    torch.as_tensor(np.asarray(pair.image_left), dtype=torch.float32,
+                                    device=device),
+                    torch.as_tensor(np.asarray(pair.image_right), dtype=torch.float32,
+                                    device=device),
+                    config,
+                )
 
-    t0 = time.perf_counter()
-    if pose_ok:
-        disp_rect = compute_disparity(rect.left, rect.right, config)
-        disparity = disparity_to_original_frame(
-            disp_rect,
-            rect.homographies.H_right,
-            (pair.height, pair.width),
-            compat_left_homography=(rect.homographies.H_left
-                                    if backwarp_compat_left else None),
-        )
-    else:
-        disparity = compute_disparity(
-            torch.as_tensor(np.asarray(pair.image_left), dtype=torch.float32,
-                            device=device),
-            torch.as_tensor(np.asarray(pair.image_right), dtype=torch.float32,
-                            device=device),
-            config,
-        )
-    _sync(device)
-    timings["disparity"] = time.perf_counter() - t0
+        with span("entry.download"):
+            disparity_np = disparity.cpu().numpy()
+        if png_compat:
+            disparity_np = disparity_png_roundtrip(disparity_np)
 
-    disparity_np = disparity.cpu().numpy()
-    if png_compat:
-        disparity_np = disparity_png_roundtrip(disparity_np)
+        with timer.stage("recon", device):
+            with span("recon.upload"):
+                disparity_dev = torch.as_tensor(disparity_np, device=device)
+            grid, depth = _reconstruct(pair, disparity_dev, config, device)
+        timings = timer.timings
 
-    t0 = time.perf_counter()
-    grid, depth = _reconstruct(pair, torch.as_tensor(disparity_np, device=device),
-                               config, device)
-    _sync(device)
-    timings["recon"] = time.perf_counter() - t0
-
-    results: Dict[str, float] = {"pose_ok": float(pose_ok)}
-    if pose is not None:
-        results.update({
-            "reproj_error_8pt": float(pose.reproj_error_8pt),
-            "reproj_error_ba": float(pose.reproj_error_ba),
-            "num_inliers": int(pose.num_inliers),
-        })
-    if pair.disp_right_gt is not None and pair.mask_right_nocc is not None:
-        m = metrics_mod.evaldisp(
-            torch.as_tensor(disparity_np, device=device),
-            torch.as_tensor(np.asarray(pair.disp_right_gt), device=device),
-            torch.as_tensor(np.asarray(pair.mask_right_nocc), device=device),
-            bad_thresh=2.0,
-            max_disp=float(pair.ndisp or 1e9),
-        )
-        results.update({k: float(v) for k, v in m.items()})
-
-    if output_dir:
-        os.makedirs(output_dir, exist_ok=True)
-        stem = os.path.join(output_dir, pair.name or "pair")
-        write_pfm(stem + "_disp.pfm", disparity_np.astype(np.float32))
-        with open(stem + "_pose.json", "w") as f:
-            json.dump(
-                {
-                    "pose": (pose.pose.cpu().numpy().tolist()
-                             if pose is not None else None),
-                    "fundamental": F.tolist(),
-                    "metrics": results,
-                    "timings": timings,
-                },
-                f,
-                indent=2,
+        results: Dict[str, float] = {"pose_ok": float(pose_ok)}
+        if pose is not None:
+            results.update({
+                "reproj_error_8pt": float(pose.reproj_error_8pt),
+                "reproj_error_ba": float(pose.reproj_error_ba),
+                "num_inliers": int(pose.num_inliers),
+            })
+        if pair.disp_right_gt is not None and pair.mask_right_nocc is not None:
+            m = metrics_mod.evaldisp(
+                torch.as_tensor(disparity_np, device=device),
+                torch.as_tensor(np.asarray(pair.disp_right_gt), device=device),
+                torch.as_tensor(np.asarray(pair.mask_right_nocc), device=device),
+                bad_thresh=2.0,
+                max_disp=float(pair.ndisp or 1e9),
             )
-        if write_mesh:
-            save_mesh(stem + "_mesh.off", grid, config.recon.mesh_edge_threshold)
+            results.update({k: float(v) for k, v in m.items()})
 
-    return PipelineResult(
-        pose=pose,
-        disparity=disparity_np,
-        depth=depth.cpu().numpy(),
-        metrics=results,
-        timings=timings,
-    )
+        if output_dir:
+            os.makedirs(output_dir, exist_ok=True)
+            stem = os.path.join(output_dir, pair.name or "pair")
+            write_pfm(stem + "_disp.pfm", disparity_np.astype(np.float32))
+            with open(stem + "_pose.json", "w") as f:
+                json.dump(
+                    {
+                        "pose": (pose.pose.cpu().numpy().tolist()
+                                 if pose is not None else None),
+                        "fundamental": F.tolist(),
+                        "metrics": results,
+                        "timings": timings,
+                    },
+                    f,
+                    indent=2,
+                )
+            if write_mesh:
+                save_mesh(stem + "_mesh.off", grid, config.recon.mesh_edge_threshold)
+
+        with span("entry.download"):
+            depth_np = depth.cpu().numpy()
+        return PipelineResult(
+            pose=pose,
+            disparity=disparity_np,
+            depth=depth_np,
+            metrics=results,
+            timings=timings,
+        )
 
 
 def reconstruct_from_disparity(

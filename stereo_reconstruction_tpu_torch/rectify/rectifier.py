@@ -25,6 +25,7 @@ from stereo_reconstruction_tpu_torch.rectify.loop_zhang import (
     RectifyHomographies,
     loop_zhang_homographies,
 )
+from stereo_reconstruction_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,26 +56,30 @@ def rectify_pair(
     matches_right: Optional[torch.Tensor] = None,
     config: RectifyConfig = RectifyConfig(),
 ) -> RectifiedPair:
-    homs = loop_zhang_homographies(
-        np.asarray(F, np.float64),
-        tuple(image_left.shape[:2]),
-        tuple(image_right.shape[:2]),
-    )
-    canvas = static_canvas(image_left.shape, image_right.shape, config)
+    with span("rectify.homographies"):
+        homs = loop_zhang_homographies(
+            np.asarray(F, np.float64),
+            tuple(image_left.shape[:2]),
+            tuple(image_right.shape[:2]),
+        )
+        canvas = static_canvas(image_left.shape, image_right.shape, config)
     device = image_left.device
-    Hl = torch.as_tensor(homs.H_left, dtype=torch.float32, device=device)
-    Hr = torch.as_tensor(homs.H_right, dtype=torch.float32, device=device)
+    with span("rectify.warp"):
+        Hl = torch.as_tensor(homs.H_left, dtype=torch.float32, device=device)
+        Hr = torch.as_tensor(homs.H_right, dtype=torch.float32, device=device)
 
-    ml = mr = None
-    if matches_left is not None:
-        ml = transform_points(Hl, torch.as_tensor(matches_left, dtype=torch.float32,
-                                                  device=device)[:2])
-        mr = transform_points(Hr, torch.as_tensor(matches_right, dtype=torch.float32,
-                                                  device=device)[:2])
+        ml = mr = None
+        if matches_left is not None:
+            ml = transform_points(Hl, torch.as_tensor(matches_left, dtype=torch.float32,
+                                                      device=device)[:2])
+            mr = transform_points(Hr, torch.as_tensor(matches_right, dtype=torch.float32,
+                                                      device=device)[:2])
+        warped_left = warp_perspective(image_left, Hl, canvas)
+        warped_right = warp_perspective(image_right, Hr, canvas)
 
     return RectifiedPair(
-        left=warp_perspective(image_left, Hl, canvas),
-        right=warp_perspective(image_right, Hr, canvas),
+        left=warped_left,
+        right=warped_right,
         homographies=homs,
         matches_left=ml,
         matches_right=mr,

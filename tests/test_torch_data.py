@@ -341,6 +341,7 @@ def test_batch_runner_masks_failures_like_jax(tmp_path):
 
 
 def test_stage_timer_append_jsonl_and_profile(tmp_path):
+    tprof.clear()
     timer = tprof.StageTimer()
     x = torch.arange(6.0)
     with timer.stage("a", x):
@@ -357,8 +358,15 @@ def test_stage_timer_append_jsonl_and_profile(tmp_path):
     rec = json.loads(open(path).read())
     assert rec["t"] == [1.5, 2.0] and rec["n"] == 4 and rec["f"] == 0.25
     assert rec["a"] == [0, 1] and "ts" in rec
-    with tprof.maybe_profile(str(tmp_path / "trace")):
-        torch.ones(3).sum()
-    assert "traceEvents" in json.loads((tmp_path / "trace" / "trace.json").read_text())
-    with tprof.maybe_profile(None):
-        pass
+    # the stages are spans: recorded, and ranges of the profile, only
+    # while a profiler session is active
+    assert tprof.spans() == []
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timer.stage("c", x):
+            torch.ones(3).sum()
+    assert [s.name for s in tprof.spans()] == ["c"] and tprof.dropped() == 0
+    assert "c" in {e.name() for e in prof.profiler.kineto_results.events()}
+    assert timer.timings["c"] >= 0
+    tprof.clear()
