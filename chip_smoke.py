@@ -30,11 +30,15 @@ code 1, no result line) if anything is off:
 4. the matcher against a literal NumPy recurrence on a small pair;
 5. the slice: ``run_pair(fixed_F=F)`` on a synthetic 750x900 pair with
    a known F at the default config (block 17, D=200, outlier kernel 500),
-   with exactly one K1 and one K1b launch and no K2 or K3 launch per call,
-   the three staged artefacts, ``evaldisp`` against the scene's true
-   disparity, and >= 99.5% disparity agreement with the plain backend;
-   median stage times over 3 runs after a warm-up; K1b bit-equal to the
-   plain scan on the slice's own K1 planes;
+   with exactly one K1, one K1b and two warp launches and no K2 or K3
+   launch per call, the three staged artefacts, ``evaldisp`` against the
+   scene's true disparity, and >= 99.5% disparity agreement with the plain
+   backend (whose warps are the kernel's too); median stage times over 3
+   runs after a warm-up; K1b bit-equal to the plain scan on the slice's
+   own K1 planes; the warp kernel bit-equal to its plain twin on the card
+   on the slice's own pair (both 750x900x3 images onto the 1128x1408
+   canvas in one launch, bilinear, and the canvas's disparity back to
+   750x900, nearest), each timed beside the twin;
 6. K2's path on the slice's own rectified canvas, as
    ``tools/tpu_validate.py`` runs it: the volume, reduced by
    ``volume_reductions`` and K1b to a disparity. The reductions must equal
@@ -55,8 +59,9 @@ code 1, no result line) if anything is off:
    kernel (layout pass, cost pass, row chain);
 9. the whole chain, ``run_pair()`` with no F, on the 750x900 non-planar
    scene (``nonplanar_scene``) at the default config (500 keypoints, 256
-   RANSAC hypotheses, BA over 60 points, D=200, block 17): exactly one K1
-   and one K1b launch and no K2 or K3 launch; a valid pose with enough points,
+   RANSAC hypotheses, BA over 60 points, D=200, block 17): exactly one K1,
+   one K1b and two warp launches and no K2 or K3 launch; a valid pose with
+   enough points,
    ``pose_ok``, rotation < 0.5 deg and translation direction < 2 deg from
    the truth, BA reprojection error < 1 px; evaldisp total-bad < 20%
    against the true disparity; the 4x4 pose staged and reloaded; the same
@@ -70,7 +75,8 @@ code 1, no result line) if anything is off:
    disparities; >= 99.5% agreement with the same batch on the plain
    backend (same draws), of each good pair with itself in a batch of one,
    and of the masked batch with the batch without the degenerate pair;
-   exactly 4 K1 and 4 K1b launches and no K2 or K3 launch, counted by the
+   exactly 4 K1, 4 K1b and 2 warp launches (2 a shard on a mesh) and no K2
+   or K3 launch, counted by the
    wrappers and seen by torch.profiler; stage times and pairs/s at B = 1
    and 4 (median of 3 after a warm-up);
 11. the command line: a MiddEval3-shaped tree of one 750x900 scene
@@ -130,14 +136,14 @@ code 1, no result line) if anything is off:
    (``multihost``, a ``file://`` store) running the exact matcher equal
    to the one-process mesh.
 
-``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4]`` times K1, K1b,
-K2 and K3 at shape (b) and K4 at 375x450 (D=100 and 200, and one strip
-alone), or only the kernels named, and prints one JSON line
-(``time_kernels``).
+``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp]`` times K1, K1b,
+K2 and K3 at shape (b), K4 at 375x450 (D=100 and 200, and one strip
+alone) and the warp kernel at the fixed-F request's shapes, or only the
+kernels named, and prints one JSON line (``time_kernels``).
 
-Each path (5, 6, 8, 9, 10, 12, 13, 14, 15) runs with every launch count set to 0 just
-before it and read just after; the launches made to compare a kernel with
-its twin are not counted. The line before the last is ``{"kernels": [...]}``, each
+Each path (5, 6, 8, 9, 10, 12, 13, 14, 15) runs with every launch count
+(K1 to K4 and the warp) set to 0 just before it and read just after; the
+launches made to compare a kernel with its twin are not counted. The line before the last is ``{"kernels": [...]}``, each
 kernel with its bound (the larger of its bytes over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s, counted for this run's inputs by
 ``stereo_reconstruction_tpu_torch/utils/roofline.py``); the
@@ -255,6 +261,27 @@ def _median_ms(fn, torch, calls=1):
     for _ in range(REPEATS):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(calls):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / calls)
+    return statistics.median(times)
+
+
+def _median_queued_ms(fn, torch, calls=CALLS, sleep_cycles=100_000_000):
+    """``_median_ms`` with the calls queued behind a sleeping kernel (~50 ms
+    at the H100's clock), so the events time the device's back-to-back
+    work and not the host's enqueue of launches shorter than their
+    dispatch."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPEATS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
         e0.record()
         for _ in range(calls):
             fn()
@@ -544,7 +571,7 @@ def _kernel_split(call, torch):
 
 KERNEL_NAMES = {"K1": "matcher_inputs_kernel", "K1b": "row_scan_kernel",
                 "K2": "cost_volume_kernel", "K3": "block_search_rows_kernel",
-                "K4": "perceptual_scan_kernel"}
+                "K4": "perceptual_scan_kernel", "warp": "warp_kernel"}
 
 
 def _profiled_launches(call, torch):
@@ -630,8 +657,9 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
     u = batch_uniforms(config, B)
     reset_counts()
     res = run_batch(pairs, config, uniforms=u, device=dev)
-    if counts() != expected(K1=B, K1b=B):
-        raise AssertionError(f"run_batch launches {counts()}: want {B} K1 and {B} K1b")
+    if counts() != expected(K1=B, K1b=B, warp=2):
+        raise AssertionError(f"run_batch launches {counts()}: want {B} K1, {B} K1b and 2 "
+                             f"warps (the {2 * B} rectifying images, the back-warps)")
     launches = {"K1": counts()["K1"], "K1b": counts()["K1b"]}
     padded = (B, h + (-h) % 8, w + (-w) % 128)
     if res.disparity.shape != padded or not np.isfinite(res.disparity).all():
@@ -652,8 +680,8 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
     plain = run_batch(pairs, config.replace(matcher=dataclasses.replace(config.matcher,
                                                                         backend="xla")),
                       uniforms=u, device=dev)
-    if counts() != expected():
-        raise AssertionError(f"plain run_batch launched kernels: {counts()}")
+    if counts() != expected(warp=2):
+        raise AssertionError(f"plain run_batch launched matcher kernels: {counts()}")
     agree_plain = [float(np.mean(res.disparity[i] == plain.disparity[i])) for i in range(B)]
     agree_one = [float(np.mean(res.disparity[i] == run_batch(
         [pairs[i]], config, uniforms=u[i:i + 1], device=dev).disparity[0]))
@@ -672,9 +700,9 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
         lambda: run_batch(pairs, config, uniforms=u, device=dev), torch)
     if seen is None:
         raise AssertionError("the profiler saw no device work in run_batch")
-    if seen != expected(K1=B, K1b=B):
-        raise AssertionError(f"the profiler saw {seen} in run_batch: want {B} K1 and "
-                             f"{B} K1b")
+    if seen != expected(K1=B, K1b=B, warp=2):
+        raise AssertionError(f"the profiler saw {seen} in run_batch: want {B} K1, "
+                             f"{B} K1b and 2 warps")
     print(f"[batch] torch.profiler in run_batch B={B}: {seen}; {n_kernels} device "
           f"kernels in all, {device_ms:.1f} ms device time", flush=True)
 
@@ -682,8 +710,9 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
     mesh = make_mesh(data=2, tile=1, devices=[dev, dev])
     reset_counts()
     sharded = run_batch(pairs, config, uniforms=u, mesh=mesh)
-    if counts() != expected(K1=B, K1b=B):
-        raise AssertionError(f"run_batch(mesh=) launches {counts()}: want {B} K1 and {B} K1b")
+    if counts() != expected(K1=B, K1b=B, warp=4):
+        raise AssertionError(f"run_batch(mesh=) launches {counts()}: want {B} K1, {B} K1b "
+                             f"and 2 warps a shard")
     if sharded.disparity.shape != padded or not np.isfinite(sharded.disparity).all():
         raise AssertionError(f"run_batch(mesh=): bad disparity {sharded.disparity.shape}")
     if sharded.pose_ok.tolist() != [True, True, True, False]:
@@ -713,15 +742,16 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
         lambda: run_batch(pairs, config, uniforms=u, mesh=mesh), torch)
     if seen is None:
         raise AssertionError("the profiler saw no device work in run_batch(mesh=)")
-    if seen != expected(K1=B, K1b=B):
-        raise AssertionError(f"the profiler saw {seen} in run_batch(mesh=): want {B} K1 "
-                             f"and {B} K1b")
+    if seen != expected(K1=B, K1b=B, warp=4):
+        raise AssertionError(f"the profiler saw {seen} in run_batch(mesh=): want {B} K1, "
+                             f"{B} K1b and 4 warps")
     print(f"[batch] torch.profiler in run_batch(mesh=) B={B}: {seen}; {n_kernels} device "
           f"kernels in all, {device_ms:.1f} ms device time", flush=True)
     reset_counts()
     piped = run_batches([pairs, pairs], config, mesh=mesh)
-    if counts() != expected(K1=2 * B, K1b=2 * B):
-        raise AssertionError(f"run_batches(mesh=) launches {counts()}: want {2 * B} each")
+    if counts() != expected(K1=2 * B, K1b=2 * B, warp=8):
+        raise AssertionError(f"run_batches(mesh=) launches {counts()}: want {2 * B} K1 and "
+                             f"K1b, 8 warps")
     _same_batch_result(piped[0], sharded, "run_batches(mesh=) batch 0 vs run_batch(mesh=)")
     _same_batch_result(piped[1], run_batch(pairs, config, uniforms=batch_uniforms(config, B, 1),
                                            mesh=mesh),
@@ -878,7 +908,7 @@ def variants_phase(torch, dev, smi, rect, pair, F, batch_pair, counts, reset_cou
         config = base.replace(matcher=MatcherConfig(cost=cost))
         reset_counts()
         res = run_pair(pair, config, fixed_F=F, device=dev)
-        if counts() != expected(K1b=1):
+        if counts() != expected(K1b=1, warp=2):
             raise AssertionError(f"[variants] run_pair {cost}: launches {counts()}")
         m = res.metrics
         print(f"[variants] run_pair(fixed_F=F) {cost} 750x900: evaldisp vs the true "
@@ -890,7 +920,7 @@ def variants_phase(torch, dev, smi, rect, pair, F, batch_pair, counts, reset_cou
     config = base.replace(matcher=MatcherConfig(cost="ncc"))
     reset_counts()
     res = run_batch([batch_pair], config, uniforms=batch_uniforms(config, 1), device=dev)
-    if counts() != expected(K1b=1) or not res.pose_ok[0]:
+    if counts() != expected(K1b=1, warp=2) or not res.pose_ok[0]:
         raise AssertionError(f"[variants] run_batch ncc: launches {counts()}, "
                              f"{res.metrics}")
     if not res.metrics[0]["bad_percent"] < MAX_TOTAL_BAD:
@@ -949,7 +979,7 @@ def uncalibrated_phase(torch, dev, smi, counts, reset_counts, expected, h=750, w
             res = run_uncalibrated(left, right, config, detector=detector, output_dir=out,
                                    device=dev)
             wall = time.perf_counter() - t0
-            if counts() != expected(K1b=1):
+            if counts() != expected(K1b=1, warp=1):
                 raise AssertionError(f"[uncalibrated] {detector}: launches {counts()}")
             pngs = all(os.path.exists(os.path.join(out, n)) for n in (
                 "rectified_left.png", "rectified_right.png", "disparity_linear.png"))
@@ -1179,8 +1209,9 @@ def perceptual_phase(torch, dev, smi, counts, reset_counts, expected, h=375, w=4
     for _ in range(2):
         reset_counts()
         res = run_pair(pair, config, fixed_F=F, device=dev)
-        if counts() != expected(K4=1):
-            raise AssertionError(f"perceptual run_pair launches {counts()}: want one K4")
+        if counts() != expected(K4=1, warp=2):
+            raise AssertionError(f"perceptual run_pair launches {counts()}: want one K4 "
+                                 f"and two warps")
         runs.append(res)
     rect = rectify_pair(torch.from_numpy(left_np).to(dev), torch.from_numpy(right_np).to(dev), F)
     direct = pcost.windowed_lpips_search(module, rect.left, rect.right, pcfg)
@@ -1568,13 +1599,18 @@ def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=140
 
 
 def time_kernels(only=()) -> int:
-    """``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4]``: K1, K1b,
-    K2 and K3 at shape (b) on the integer-valued pair, and K1b seeded on the
+    """``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp]``: K1,
+    K1b, K2 and K3 at shape (b) on the integer-valued pair, and K1b seeded on the
     exact sharded matcher's 282-row tile of it (``K1b_tile``); K4 on a
     planted ``perceptual_volume`` at 375x450, D=100, chunk 20, one 20-column
     strip of it alone (``K4_strip``: the chain of 394 diagonals) and at
-    D=200 (``K4_D200``, the default config's D). Names given: only those
-    kernels. CUDA events, median of REPEATS over CALLS back-to-back calls
+    D=200 (``K4_D200``, the default config's D); the warp kernel on a
+    750x900 non-planar scene's Loop-Zhang maps: both uint8 images onto the
+    1128x1408 canvas, bilinear, one launch (``warp_rectify``), and a float32
+    canvas back to 750x900, nearest (``warp_back``), each beside its plain
+    twin on the card (``*_plain``) and its bound (``bound_ms``), the calls
+    queued behind a sleeping kernel (``_median_queued_ms``). Names given:
+    only those kernels. CUDA events, median of REPEATS over CALLS back-to-back calls
     (K3 one call a sample), as one JSON line. It uses only arguments the
     wrappers have taken since seeded rows came in, so a copy of this file
     beside an older checkout times that checkout's kernels: run two
@@ -1592,7 +1628,7 @@ def time_kernels(only=()) -> int:
     from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
     from stereo_reconstruction_tpu_torch.perceptual import scan as pscan
 
-    only = set(only) or {"K1", "K1b", "K2", "K3", "K4"}
+    only = set(only) or {"K1", "K1b", "K2", "K3", "K4", "warp"}
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1632,9 +1668,40 @@ def time_kernels(only=()) -> int:
                 strip = vol[:, :, :20].contiguous()
                 ms["K4_strip"] = _median_ms(lambda: pscan.window_scan(strip, table, 20), torch,
                                             CALLS)
+    bounds = {}
+    if "warp" in only:
+        from stereo_reconstruction_tpu_torch.config import RectifyConfig
+        from stereo_reconstruction_tpu_torch.ops.warp import host_inverse, warp_inverse_map, \
+            warp_inverse_maps
+        from stereo_reconstruction_tpu_torch.rectify.loop_zhang import loop_zhang_homographies
+        from stereo_reconstruction_tpu_torch.rectify.rectifier import static_canvas
+        from stereo_reconstruction_tpu_torch.utils.roofline import warp_bound
+
+        left, right, _, _, _, F, _ = nonplanar_scene(np.random.default_rng(SEED), 750, 900)
+        homs = loop_zhang_homographies(F, (750, 900), (750, 900))
+        canvas = static_canvas((750, 900), (750, 900), RectifyConfig())
+        imgs = [torch.from_numpy(x).to(dev) for x in (left, right)]
+        maps = host_inverse(np.stack([homs.H_left, homs.H_right]))
+        disp = torch.from_numpy(np.random.default_rng(SEED).uniform(0, 200, canvas)
+                                .astype(np.float32)).to(dev)
+        back = host_inverse(host_inverse(homs.H_right))[None]
+        maps_d, back_d = maps.to(dev), back.to(dev)
+        timers = {
+            "warp_rectify": lambda: warp_inverse_maps(imgs, maps, canvas),
+            "warp_rectify_plain": lambda: [warp_inverse_map(img, m, canvas)
+                                           for img, m in zip(imgs, maps_d)],
+            "warp_back": lambda: warp_inverse_maps([disp], back, (750, 900), "nearest"),
+            "warp_back_plain": lambda: warp_inverse_map(disp, back_d[0], (750, 900), "nearest"),
+        }
+        for key, fn in timers.items():
+            ms[key] = _median_queued_ms(fn, torch)
+        bounds["warp_rectify"] = warp_bound(750, 900, 3, 1, *canvas, images=2)
+        bounds["warp_back"] = warp_bound(*canvas, 1, 4, 750, 900, nearest=True)
     print(json.dumps({"card": smi, "checkout": os.path.dirname(os.path.abspath(__file__)),
                       "shape": "(b) 1128x1408, D=200, block 17; K4 375x450, chunk 20 "
-                               "(394 diagonals a strip)", "ms": ms}))
+                               "(394 diagonals a strip); warp 750x900x3 uint8 x 2 -> "
+                               "1128x1408, 1128x1408 float32 -> 750x900", "ms": ms,
+                      "bound_ms": bounds}))
     return 0
 
 
@@ -1654,26 +1721,31 @@ def main() -> int:
     from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
     from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
     from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
+    from stereo_reconstruction_tpu_torch.ops import cuda_warp as cwarp
     from stereo_reconstruction_tpu_torch.ops import smoothing
     from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
     from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
-    from stereo_reconstruction_tpu_torch.ops.warp import warp_perspective
+    from stereo_reconstruction_tpu_torch.ops.warp import host_inverse, warp_inverse_map, \
+        warp_inverse_maps, warp_perspective
     from stereo_reconstruction_tpu_torch.perceptual import scan as pscan
     from stereo_reconstruction_tpu_torch.pipeline import estimate_pose, run_pair
-    from stereo_reconstruction_tpu_torch.rectify.rectifier import rectify_pair
-    from stereo_reconstruction_tpu_torch.utils.roofline import matcher_bound, scan_bound
+    from stereo_reconstruction_tpu_torch.rectify.rectifier import disparity_to_original_frame, \
+        rectify_pair
+    from stereo_reconstruction_tpu_torch.utils.roofline import matcher_bound, scan_bound, \
+        warp_bound
 
     dev = torch.device("cuda", 0)
 
     def reset_counts():
         ccv.LAUNCHES = crs.LAUNCHES = ccv.VOLUME_LAUNCHES = cbs.LAUNCHES = pscan.LAUNCHES = 0
+        cwarp.LAUNCHES = 0
 
     def counts():
         return {"K1": ccv.LAUNCHES, "K1b": crs.LAUNCHES, "K2": ccv.VOLUME_LAUNCHES,
-                "K3": cbs.LAUNCHES, "K4": pscan.LAUNCHES}
+                "K3": cbs.LAUNCHES, "K4": pscan.LAUNCHES, "warp": cwarp.LAUNCHES}
 
     def expected(**k):
-        return {"K1": 0, "K1b": 0, "K2": 0, "K3": 0, "K4": 0, **k}
+        return {"K1": 0, "K1b": 0, "K2": 0, "K3": 0, "K4": 0, "warp": 0, **k}
 
     # 1. device
     smi = subprocess.run(
@@ -1699,7 +1771,7 @@ def main() -> int:
         "c": dict(h=21, w=40, wl_extra=9, bs=5, min_d=2, max_d=12),
         "d": dict(h=101, w=200, wl_extra=0, bs=9, min_d=1, max_d=31),
     }
-    max_err = {"K1": 0.0, "K1b": 0.0, "K2": 0.0, "K3": 0.0}
+    max_err = {"K1": 0.0, "K1b": 0.0, "K2": 0.0, "K3": 0.0, "warp": 0.0}
     times = {}
     bounds = {}
     for key, s in shapes.items():
@@ -1840,9 +1912,11 @@ def main() -> int:
         reset_counts()
         res = run_pair(pair, config, output_dir=tmp, write_mesh=True, fixed_F=F,
                        device=dev)
-        if counts() != expected(K1=1, K1b=1):
-            raise AssertionError(f"run_pair launches {counts()}: want one K1 and one K1b")
+        if counts() != expected(K1=1, K1b=1, warp=2):
+            raise AssertionError(f"run_pair launches {counts()}: want one K1, one K1b and "
+                                 f"two warps")
         launches["K1"], launches["K1b"] = counts()["K1"], counts()["K1b"]
+        launches["warp"] = counts()["warp"]
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         disp = res.disparity
         if disp.shape != (750, 900) or not np.isfinite(disp).all():
@@ -1862,7 +1936,8 @@ def main() -> int:
         print(f"[slice] evaldisp vs the scene's true disparity: bad-2.0 "
               f"{m['bad_percent']:.3f}%, invalid {m['invalid_percent']:.3f}%, "
               f"avg err {m['avg_err']:.3f} px over {int(m['n_evaluated'])} px")
-        print(f"[slice] run_pair 750x900 D=200: 1 K1 and 1 K1b launch, disparity finite, "
+        print(f"[slice] run_pair 750x900 D=200: 1 K1, 1 K1b and 2 warp launches, disparity "
+              f"finite, "
               f"{len(faces)} mesh faces, artefacts reload; peak {peak_gib:.2f} GiB; "
               f"valid (>0) {np.mean(disp > 0):.4f}", flush=True)
 
@@ -1872,7 +1947,8 @@ def main() -> int:
         reset_counts()
         r = run_pair(pair, config if which == "kernel" else plain_config,
                      fixed_F=F, device=dev)
-        if counts() != expected(K1=int(which == "kernel"), K1b=int(which == "kernel")):
+        if counts() != expected(K1=int(which == "kernel"), K1b=int(which == "kernel"),
+                                warp=2):
             raise AssertionError(f"{which} run_pair: launches {counts()}")
         if which == "kernel" and not np.array_equal(r.disparity, disp):
             raise AssertionError("run_pair is not deterministic")
@@ -1891,8 +1967,11 @@ def main() -> int:
               + ", ".join(f"{k} {v:.2f}" for k, v in med.items()), flush=True)
 
     # where the disparity stage goes, on the slice's own rectified inputs
-    rect = rectify_pair(torch.from_numpy(left_np).to(dev),
-                        torch.from_numpy(right_np).to(dev), F)
+    imgs = [torch.from_numpy(x).to(dev) for x in (left_np, right_np)]
+    reset_counts()
+    rect = rectify_pair(*imgs, F)
+    if counts() != expected(warp=1):
+        raise AssertionError(f"rectify_pair launches {counts()}: want one warp")
     planes = ccv.matcher_inputs(rect.left, rect.right, 17, 0, 200)
     black = black_pixel_mask(rect.right)
     scan = dict(smooth_factor=0.9, d_first=0, n_planes=200)
@@ -1910,6 +1989,44 @@ def main() -> int:
     print(f"[slice] disparity stage parts on the {tuple(rect.canvas)} canvas: "
           f"K1 {k1_rect_ms:.4f} ms, K1b {scan_ms:.4f} ms (bit-equal to the plain scan, "
           f"{plain_scan_ms:.2f} ms)", flush=True)
+
+    # the warp kernel on the slice's own pair against its plain twin on the
+    # card: both 750x900x3 images onto the canvas (bilinear, one launch),
+    # and the canvas's disparity back to 750x900 (nearest)
+    homs = rect.homographies
+    maps = host_inverse(np.stack([homs.H_left, homs.H_right]))
+    back = host_inverse(host_inverse(homs.H_right))
+    maps_d, back_d = maps.to(dev), back.to(dev)
+    reset_counts()
+    back_k = disparity_to_original_frame(got, homs.H_right, (750, 900))
+    if counts() != expected(warp=1):
+        raise AssertionError(f"back-warp launches {counts()}: want one warp")
+    twins = [("left", rect.left, warp_inverse_map(imgs[0], maps_d[0], rect.canvas)),
+             ("right", rect.right, warp_inverse_map(imgs[1], maps_d[1], rect.canvas)),
+             ("back-warp", back_k, warp_inverse_map(got, back_d, (750, 900), "nearest"))]
+    torch.cuda.synchronize()
+    for name, g, w in twins:
+        if g.shape != w.shape or not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"warp kernel != plain twin on the slice's {name}: "
+                                 f"{(g != w).float().mean().item():.3%} of values")
+        max_err["warp"] = max(max_err["warp"], _max_abs_err(g, w))
+    del twins
+    times["warp", "rectify"] = (
+        _median_queued_ms(lambda: warp_inverse_maps(imgs, maps, rect.canvas), torch),
+        _median_queued_ms(lambda: [warp_inverse_map(i, m, rect.canvas)
+                                   for i, m in zip(imgs, maps_d)], torch))
+    times["warp", "back"] = (
+        _median_queued_ms(lambda: warp_inverse_maps([got], back[None], (750, 900), "nearest"),
+                          torch),
+        _median_queued_ms(lambda: warp_inverse_map(got, back_d, (750, 900), "nearest"), torch))
+    bounds["warp", "rectify"] = warp_bound(750, 900, 3, 1, *rect.canvas, images=2)
+    bounds["warp", "back"] = warp_bound(*rect.canvas, 1, 4, 750, 900, nearest=True)
+    print(f"[slice] warp kernel bit-equal to its plain twin on the card: both 750x900x3 "
+          f"images onto the {tuple(rect.canvas)} canvas (one launch) "
+          f"{times['warp', 'rectify'][0]:.4f} ms, plain {times['warp', 'rectify'][1]:.4f} ms, "
+          f"bound {bounds['warp', 'rectify'][0]:.4f} ms; the back-warp to 750x900 "
+          f"{times['warp', 'back'][0]:.4f} ms, plain {times['warp', 'back'][1]:.4f} ms, bound "
+          f"{bounds['warp', 'back'][0]:.4f} ms (median of {REPEATS}, queued)", flush=True)
 
     # 6. K2's path on the same canvas, as tools/tpu_validate.py runs it
     reset_counts()
@@ -2026,8 +2143,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         reset_counts()
         res = run_pair(pair, config, output_dir=tmp, write_mesh=True, device=dev)
-        if counts() != expected(K1=1, K1b=1):
-            raise AssertionError(f"run_pair() launches {counts()}: want one K1 and one K1b")
+        if counts() != expected(K1=1, K1b=1, warp=2):
+            raise AssertionError(f"run_pair() launches {counts()}: want one K1, one K1b and "
+                                 f"two warps")
         pose = res.pose
         P = pose.pose.cpu().numpy()
         rot, trans = pose_angles(P, R_true, T_true)
@@ -2061,7 +2179,7 @@ def main() -> int:
     for _ in range(3):
         reset_counts()
         r = run_pair(pair, config, device=dev)
-        if counts() != expected(K1=1, K1b=1):
+        if counts() != expected(K1=1, K1b=1, warp=2):
             raise AssertionError(f"run_pair() launches {counts()}")
         if not torch.equal(r.pose.pose, pose.pose):
             raise AssertionError("run_pair() pose is not deterministic")
@@ -2120,9 +2238,15 @@ def main() -> int:
          "stereo_reconstruction_tpu/ops/pallas_block_search.py:48", ("K3", "canvas")),
         ("K4", "perceptual windowed smoother", csrc + "perceptual_scan.cuh",
          "stereo_reconstruction_tpu/perceptual/cost.py:293", ("K4", "scene")),
+        ("warp", "perspective warp, both rectifying warps", csrc + "warp.cuh",
+         "stereo_reconstruction_tpu/ops/warp.py:41", ("warp", "rectify")),
+        ("warp", "perspective warp, the disparity back-warp", csrc + "warp.cuh",
+         "stereo_reconstruction_tpu/ops/warp.py:41", ("warp", "back")),
     ]
     at = {"b": "1128x1408 canvas, D=200, block 17", "canvas": "1128x1408 canvas, D=200, block 17",
-          "scene": "375x450, D=100, window 17, chunk 20 (the windowed volume)"}
+          "scene": "375x450, D=100, window 17, chunk 20 (the windowed volume)",
+          "rectify": "both uint8 750x900x3 images -> 1128x1408 canvas, bilinear, one launch",
+          "back": "1128x1408 float32 disparity -> 750x900, nearest"}
     print(json.dumps({"kernels": [{
         "name": f"{k} {name}",
         "route": "cuda",

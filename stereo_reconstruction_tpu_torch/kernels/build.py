@@ -125,5 +125,11 @@ def load_library() -> ctypes.CDLL:
         lib.stpu_perceptual_scan_scratch_bytes.restype = ctypes.c_longlong
         lib.stpu_perceptual_scan_max_smem.argtypes = []
         lib.stpu_perceptual_scan_max_smem.restype = ctypes.c_longlong
+        lib.stpu_warp.argtypes = [p, p, p, i, i, i, p, i, i, i, p]
+        lib.stpu_warp.restype = i
+        lib.stpu_warp_max_images.argtypes = []
+        lib.stpu_warp_max_images.restype = i
+        lib.stpu_warp_error.argtypes = [i]
+        lib.stpu_warp_error.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB

@@ -1,4 +1,4 @@
-"""Perspective warps (``cv::warpPerspective`` semantics), plain PyTorch.
+"""Perspective warps (``cv::warpPerspective`` semantics).
 
 Port of ``stereo_reconstruction_tpu/ops/warp.py`` (``warp_perspective``,
 ``warp_inverse_map``, ``transform_points``): inverse mapping — every
@@ -7,24 +7,68 @@ bilinearly (or nearest, round half to even), zero outside the source
 (reference rectification.cpp:486-493 and :71-87). The JAX package's
 gather-free band warp exists only because TPU gathers are slow; here the
 general gather warp serves every homography.
+
+``warp_perspective`` takes one image or a batch, inverts H in float32 on
+the host (``host_inverse``) and hands the maps to ``warp_inverse_maps``,
+the one place a warp picks its route: the plain PyTorch twin
+``warp_inverse_map`` below for CPU images, one launch of the warp kernel
+(``ops/cuda_warp.py``, bit-equal to the twin) for CUDA ones. A CUDA image
+launches or raises; nothing falls back.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
+
+from stereo_reconstruction_tpu_torch.ops import cuda_warp
+
+
+def host_inverse(H) -> torch.Tensor:
+    """``torch.linalg.inv`` of H, (3, 3) or (B, 3, 3), in float32 on the
+    CPU: NumPy as it is, a tensor copied to the host first. A singular H
+    raises ``torch.linalg.LinAlgError``."""
+    H = H.detach().cpu() if isinstance(H, torch.Tensor) else torch.as_tensor(np.asarray(H))
+    return torch.linalg.inv(H.to(torch.float32))
 
 
 def warp_perspective(
-    image: torch.Tensor,          # (H, W) or (H, W, C)
-    H: torch.Tensor,              # (3, 3) maps SOURCE coords -> DEST coords
+    image: Union[torch.Tensor, Sequence[torch.Tensor]],
+    H,                            # (3, 3) or (B, 3, 3): SOURCE coords -> DEST coords
     out_shape: Tuple[int, int],
     method: str = "bilinear",
 ) -> torch.Tensor:
-    """dst(p) = src(H^{-1} p) in an ``out_shape`` canvas, float32."""
-    Hinv = torch.linalg.inv(H.to(torch.float32))
-    return warp_inverse_map(image, Hinv, out_shape, method)
+    """dst(p) = src(H^{-1} p) in an ``out_shape`` canvas, float32, with
+    H^{-1} computed on the host. One image (h, w) or (h, w, C) with H
+    (3, 3); or a batch with H (B, 3, 3): B images, a sequence (each its own
+    h, w) or a (B, h, w[, C]) tensor, giving (B, h_out, w_out[, C])."""
+    Hinv = host_inverse(H)
+    if Hinv.ndim == 2:
+        return warp_inverse_maps([image], Hinv[None], out_shape, method)[0]
+    return warp_inverse_maps(image, Hinv, out_shape, method)
+
+
+def warp_inverse_maps(
+    images: Sequence[torch.Tensor],
+    Hinv: torch.Tensor,           # (B, 3, 3) DEST -> SOURCE; on the CPU for CUDA images
+    out_shape: Tuple[int, int],
+    method: str = "bilinear",
+) -> torch.Tensor:
+    """``warp_inverse_map`` of each image with its map, stacked: the twin
+    for CPU images, ``cuda_warp.warp`` (one launch) for CUDA images."""
+    images = list(images)
+    if not images or tuple(Hinv.shape) != (len(images), 3, 3):
+        raise ValueError(f"expected B images and (B, 3, 3) maps, got {len(images)} images "
+                         f"and {tuple(Hinv.shape)}")
+    if any(img.shape[2:] != images[0].shape[2:] for img in images):
+        raise ValueError("a batch's images must share their channels, got "
+                         f"{[tuple(img.shape) for img in images]}")
+    if all(img.device.type == "cpu" for img in images):
+        return torch.stack([warp_inverse_map(img, m, out_shape, method)
+                            for img, m in zip(images, Hinv)])
+    return cuda_warp.warp(images, Hinv, out_shape, method)
 
 
 def _int_coord(v: torch.Tensor, n: int) -> torch.Tensor:

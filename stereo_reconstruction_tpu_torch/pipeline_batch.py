@@ -9,7 +9,9 @@ Port of ``stereo_reconstruction_tpu/pipeline_batch.py`` (``run_batch``,
                          pairs under ``torch.func.vmap`` (JAX vmaps the
                          whole per-pair program, ``_pose_batch``);
   host:                  Loop-Zhang homographies per pair (3x3 float64);
-  dense, on the device:  the two warps onto the static canvas, the matcher
+  dense, on the device:  the two warps onto the static canvas (the warp
+                         kernel, one launch for up to 32 of the batch's 2B
+                         images, the inverse maps made on the host), the matcher
                          (one K1 and one K1b launch per pair), the
                          nearest-neighbour back-warp, the outlier clamp and
                          depth over the batch; ``evaldisp`` over the pairs
@@ -67,7 +69,7 @@ from stereo_reconstruction_tpu_torch.config import PipelineConfig
 from stereo_reconstruction_tpu_torch.data.records import StereoPair, pad_to
 from stereo_reconstruction_tpu_torch.ops import metrics as metrics_mod
 from stereo_reconstruction_tpu_torch.ops.features import Keypoints, detect_and_describe_batch
-from stereo_reconstruction_tpu_torch.ops.warp import warp_perspective
+from stereo_reconstruction_tpu_torch.ops.warp import host_inverse, warp_perspective
 from stereo_reconstruction_tpu_torch.parallel.mesh import Mesh
 from stereo_reconstruction_tpu_torch.parallel.multihost import ProcessGroupMesh
 from stereo_reconstruction_tpu_torch.pipeline import _device, compute_disparity, \
@@ -255,16 +257,15 @@ def _stage_host_geometry(st: _Staged, config: PipelineConfig) -> None:
     t0 = time.perf_counter()
     canvas = static_canvas((st.hmax, st.wmax), (st.hmax, st.wmax), config.rectify)
     out_shape = (st.hmax, st.wmax)
-    Hl_d, Hr_d = _to_device(Hl, st.device), _to_device(Hr, st.device)
-    rect_l = vmap(lambda img, h: warp_perspective(img, h, canvas))(st.L, Hl_d)
-    rect_r = vmap(lambda img, h: warp_perspective(img, h, canvas))(st.R, Hr_d)
+    # both sides' warps at once: one launch of the warp kernel on the card
+    rect = warp_perspective([*st.L, *st.R], np.concatenate([Hl, Hr]), canvas)
+    rect_l, rect_r = rect[:B], rect[B:]
     # the matcher's kernels take one pair: one K1 and one K1b launch each
     disp_rect = torch.stack([compute_disparity(rect_l[i], rect_r[i], config)
                              for i in range(B)])
     # NN back-warp of disparity VALUES (the reference's approximation,
     # rectification.cpp:70-88, with the right image's homography)
-    disp = vmap(lambda d, h: warp_perspective(d, torch.linalg.inv(h), out_shape,
-                                              method="nearest"))(disp_rect, Hr_d)
+    disp = warp_perspective(disp_rect, host_inverse(Hr), out_shape, method="nearest")
     recon = config.recon
     disp_clean = vmap(lambda d: remove_disparity_outliers(
         d, recon.outlier_kernel, recon.outlier_front, recon.outlier_back))(disp)

@@ -4,6 +4,9 @@ Port of ``stereo_reconstruction_tpu/rectify/rectifier.py`` (reference
 ``ImageRectifier``, rectification.cpp:53-88,432-497): Loop-Zhang
 homographies on the host (float64 NumPy), warps into a static canvas on
 the images' device, and the nearest-neighbour back-warp of disparity.
+Every inverse map is computed on the host (``ops/warp.py::host_inverse``),
+so on the card the two rectifying warps are one launch of the warp kernel
+and the back-warp another, with no upload and no synchronisation.
 
 The canvas is ``ceil(canvas_scale * input)``, height rounded up to a
 multiple of 8 and width to a multiple of 128, exactly as in the JAX
@@ -20,7 +23,8 @@ import numpy as np
 import torch
 
 from stereo_reconstruction_tpu_torch.config import RectifyConfig
-from stereo_reconstruction_tpu_torch.ops.warp import transform_points, warp_perspective
+from stereo_reconstruction_tpu_torch.ops.warp import host_inverse, transform_points, \
+    warp_perspective
 from stereo_reconstruction_tpu_torch.rectify.loop_zhang import (
     RectifyHomographies,
     loop_zhang_homographies,
@@ -65,17 +69,20 @@ def rectify_pair(
         canvas = static_canvas(image_left.shape, image_right.shape, config)
     device = image_left.device
     with span("rectify.warp"):
-        Hl = torch.as_tensor(homs.H_left, dtype=torch.float32, device=device)
-        Hr = torch.as_tensor(homs.H_right, dtype=torch.float32, device=device)
-
         ml = mr = None
         if matches_left is not None:
+            Hl = torch.as_tensor(homs.H_left, dtype=torch.float32, device=device)
+            Hr = torch.as_tensor(homs.H_right, dtype=torch.float32, device=device)
             ml = transform_points(Hl, torch.as_tensor(matches_left, dtype=torch.float32,
                                                       device=device)[:2])
             mr = transform_points(Hr, torch.as_tensor(matches_right, dtype=torch.float32,
                                                       device=device)[:2])
-        warped_left = warp_perspective(image_left, Hl, canvas)
-        warped_right = warp_perspective(image_right, Hr, canvas)
+        if image_left.shape[2:] == image_right.shape[2:]:
+            warped_left, warped_right = warp_perspective(
+                [image_left, image_right], np.stack([homs.H_left, homs.H_right]), canvas)
+        else:                   # the sides differ in channels: a warp each
+            warped_left = warp_perspective(image_left, homs.H_left, canvas)
+            warped_right = warp_perspective(image_right, homs.H_right, canvas)
 
     return RectifiedPair(
         left=warped_left,
@@ -99,7 +106,5 @@ def disparity_to_original_frame(
     reference's use of the left homography."""
     Hu = compat_left_homography if compat_left_homography is not None else H
     # dst(p) = src(Hu p): warpPerspective with M = Hu^{-1}
-    Hu = torch.as_tensor(np.asarray(Hu, np.float64), dtype=torch.float32,
-                         device=disparity_rect.device)
-    return warp_perspective(disparity_rect, torch.linalg.inv(Hu), out_shape,
-                            method="nearest")
+    return warp_perspective(disparity_rect, host_inverse(np.asarray(Hu, np.float64)),
+                            out_shape, method="nearest")

@@ -74,6 +74,19 @@ def window_scan_bound(h: int, d: int, w: int):
     return bound(4 * (h * d * w + d + 1 + h * w), 3 * h * d * w)
 
 
+def warp_bound(h: int, w: int, channels: int, src_bytes: int, h_out: int, w_out: int,
+               images: int = 1, nearest: bool = False):
+    """``bound`` of the warp kernel on ``images`` (h, w, channels) sources
+    of ``src_bytes`` a value into (h_out, w_out, channels) float32: each
+    source read once, each output written once; per output pixel 14
+    float32 operations of the map, then bilinear 6 + 15 a channel (the
+    floors and weights; four masked samples, eight products, three adds)
+    or nearest 2 + 1 a channel (the roundings; one masked sample)."""
+    per_pixel = 16 + channels if nearest else 20 + 15 * channels
+    return bound(images * (h * w * channels * src_bytes + 4 * h_out * w_out * channels),
+                 images * h_out * w_out * per_pixel)
+
+
 def matcher_roofline(H: int, W: int, D: int, block_size: int = 17,
                      min_disparity: int = 0, WL: int | None = None) -> Dict:
     """The bounds of one pair through the exact matcher on the card, K1

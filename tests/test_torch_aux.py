@@ -161,3 +161,17 @@ def test_roofline_matches_the_kernel_table():
     assert r["binding_resource"] == "operations"
     assert r["gap_to_binding_bound"] == pytest.approx(3.99 / r["floor_ms_binding"])
     assert r["floor_ms_binding"] > k1[0]
+
+
+def test_warp_bound_counts_bytes_and_operations():
+    """PERF.md §6's warp rows (printed by ``chip_smoke.py --time-kernels
+    warp``): both uint8 750x900x3 images onto the 1128x1408 canvas, and a
+    float32 canvas back to 750x900, nearest; the stores bind both."""
+    t, what = roofline.warp_bound(750, 900, 3, 1, 1128, 1408, images=2)
+    assert (round(t, 4), what) == (0.0126, "bytes")
+    t, what = roofline.warp_bound(1128, 1408, 1, 4, 750, 900, nearest=True)
+    assert (round(t, 4), what) == (0.0027, "bytes")
+    assert roofline.warp_bound(2, 3, 3, 1, 4, 5) == roofline.bound(2 * 3 * 3 + 4 * 4 * 5 * 3,
+                                                                   4 * 5 * (20 + 15 * 3))
+    assert roofline.warp_bound(2, 3, 1, 4, 4, 5, images=3, nearest=True) == roofline.bound(
+        3 * (2 * 3 * 4 + 4 * 4 * 5), 3 * 4 * 5 * 17)

@@ -31,7 +31,12 @@ seeded tiles chain to one launch; K1b equals its twin on chain planes
 boundaries up to its widest row (8192), plain and seeded, and a row wider
 than 4096 goes through K1 and K1b in ``block_search_right``; the exact sharded matcher on a
 ``cuda:0`` x 8 mesh equals ``block_search_right`` with 8 K1 and 32 K1b
-launches.
+launches. The warp kernel equals its plain twin (``warp_inverse_map``
+on the card) bit for bit on random maps, -0.0 and batches of two launches
+included, and takes what the twin takes (other dtypes, views, 2 and 4
+channels); the rectifying warps and the back-warp make no host
+synchronisation, equal the CPU path bit for bit, and launch it twice a
+fixed-F ``run_pair`` (never in a perceptual ``compute_disparity``).
 """
 
 import os
@@ -46,10 +51,17 @@ from stereo_reconstruction_tpu_torch.data.records import StereoPair, pad_to
 from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
 from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
 from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
+from stereo_reconstruction_tpu_torch.ops import cuda_warp
 from stereo_reconstruction_tpu_torch.ops import cost_volume as tcv
 from stereo_reconstruction_tpu_torch.ops.block_search import block_search_left, block_search_right
 from stereo_reconstruction_tpu_torch.ops.linear_search import linear_search
 from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
+from stereo_reconstruction_tpu_torch.ops.warp import warp_inverse_map, warp_inverse_maps, \
+    warp_perspective
+from stereo_reconstruction_tpu_torch.rectify.rectifier import (
+    disparity_to_original_frame,
+    rectify_pair,
+)
 from stereo_reconstruction_tpu_torch.ops.smoothing import (
     smoothed_argmin_from_inputs,
     volume_reductions,
@@ -75,10 +87,12 @@ from chip_smoke import (  # noqa: E402
 )
 from torch_helpers import (  # noqa: E402
     STRIP_WIDTHS,
+    WARP_IMAGE_CASES,
     chain_planes,
     halo_tile,
     scan_volume,
     seed_rows,
+    warp_images,
 )
 
 pytestmark = pytest.mark.cuda
@@ -743,3 +757,163 @@ def test_sharded_matcher_on_card(cuda, rng):
                                        make_mesh(data=2, tile=4, devices=["cpu"] * 8),
                                        cfg, exact=True)
     assert torch.equal(got.cpu(), plain)
+
+
+def _warp_maps(rng, n, kind):
+    """n float32 inverse maps (destination -> source) of one kind."""
+    out = []
+    for _ in range(n):
+        if kind == "near":           # a mild perspective map, most pixels inside
+            m = [[1.02, 0.03, rng.uniform(-5, 5)], [-0.02, 0.99, rng.uniform(-5, 5)],
+                 [rng.uniform(-2e-4, 2e-4), rng.uniform(-2e-4, 2e-4), 1.0]]
+        elif kind == "outside":      # most pixels outside the source
+            m = [[3.0, 0.2, -50], [0.1, 2.5, 40], [rng.uniform(-1e-3, 1e-3), 2e-3, 1.0]]
+        elif kind == "zero_denom":   # the denominator is exactly 0 on column 16 or row 12
+            m = ([[1.0, 0.1, 2.0], [0.05, 1.0, 1.0], [0.0625, 0.0, -1.0]] if len(out) % 2
+                 else [[1.0, 0.1, 2.0], [0.05, 1.0, 1.0], [0.0, 0.125, -1.5]])
+        else:
+            m = np.eye(3) + rng.normal(0, [[0.1, 0.1, 10], [0.1, 0.1, 10], [1e-3, 1e-3, 0.05]])
+        out.append(np.asarray(m, np.float32))
+    return torch.from_numpy(np.stack(out))
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("method", ["bilinear", "nearest"])
+@pytest.mark.parametrize("channels,dtype", [(None, np.uint8), (1, np.uint8), (3, np.uint8),
+                                            (None, np.float32), (3, np.float32)])
+@pytest.mark.parametrize("n,kind,out_shape", [(1, "near", (48, 64)), (2, "outside", (45, 61)),
+                                              (3, "zero_denom", (30, 50)),
+                                              (37, "random", (40, 52))])
+def test_warp_kernel_bit_equal_to_plain(cuda, rng, method, channels, dtype, n, kind, out_shape):
+    imgs = []
+    for _ in range(n):
+        h, w = int(rng.integers(20, 60)), int(rng.integers(20, 70))
+        shape = (h, w) if channels is None else (h, w, channels)
+        a = (rng.integers(0, 256, shape) if dtype == np.uint8
+             else rng.uniform(-50, 50, shape)).astype(dtype)      # negatives: -0.0 outside
+        imgs.append(torch.from_numpy(a).to(cuda))
+    hinv = _warp_maps(rng, n, kind)
+    before = cuda_warp.LAUNCHES
+    got = cuda_warp.warp(imgs, hinv, out_shape, method)
+    assert cuda_warp.LAUNCHES == before + (2 if n > 32 else 1)
+    want = torch.stack([warp_inverse_map(img, m.to(cuda), out_shape, method)
+                        for img, m in zip(imgs, hinv)])
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.device == want.device
+    assert torch.equal(_bits(got), _bits(want))
+    if dtype == np.float32 and kind == "outside":
+        assert bool(((got == 0) & torch.signbit(got)).any())
+
+
+def test_warp_kernel_at_the_canvas_bit_equal_to_plain(cuda):
+    left, right, _, _, _, F, _ = nonplanar_scene(np.random.default_rng(0), 750, 900)
+    rect = rectify_pair(torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda), F)
+    homs = rect.homographies
+    for side, img, H in (("left", left, homs.H_left), ("right", right, homs.H_right)):
+        hinv = torch.linalg.inv(torch.as_tensor(H, dtype=torch.float32)).to(cuda)
+        want = warp_inverse_map(torch.from_numpy(img).to(cuda), hinv, rect.canvas)
+        assert torch.equal(_bits(getattr(rect, side)), _bits(want)), side
+    disp = torch.from_numpy(np.random.default_rng(1).uniform(-5, 200, rect.canvas)
+                            .astype(np.float32)).to(cuda)
+    back = disparity_to_original_frame(disp, homs.H_right, (750, 900))
+    m = torch.linalg.inv(torch.linalg.inv(torch.as_tensor(homs.H_right, dtype=torch.float32)))
+    want = warp_inverse_map(disp, m.to(cuda), (750, 900), method="nearest")
+    assert torch.equal(_bits(back), _bits(want))
+
+
+@pytest.mark.parametrize("case", WARP_IMAGE_CASES)
+@pytest.mark.parametrize("method", ["bilinear", "nearest"])
+def test_warp_takes_what_the_twin_takes(cuda, rng, case, method):
+    """Another dtype, a view, 2 or 4 channels, uint8 beside float32: the
+    card's route gives the twin's output on the card and the CPU route's,
+    bit for bit, in one launch (a plane a channel for 2 and 4)."""
+    imgs = warp_images(rng, case)
+    H = np.stack([np.eye(3) + rng.normal(0, [[0.05, 0.05, 4], [0.05, 0.05, 4],
+                                             [5e-4, 5e-4, 0.02]]) for _ in imgs])
+    before = cuda_warp.LAUNCHES
+    got = warp_perspective([img.to(cuda) for img in imgs], H, (36, 44), method)
+    assert cuda_warp.LAUNCHES == before + 1
+    hinv = torch.linalg.inv(torch.from_numpy(H).float())
+    on_card = torch.stack([warp_inverse_map(img.to(cuda), m.to(cuda), (36, 44), method)
+                           for img, m in zip(imgs, hinv)])
+    torch.cuda.synchronize()
+    assert got.shape == on_card.shape and got.is_contiguous()
+    assert torch.equal(_bits(got), _bits(on_card))
+    assert torch.equal(_bits(got.cpu()), _bits(warp_perspective(imgs, H, (36, 44), method)))
+
+
+def test_warp_wrapper_checks(cuda):
+    img = torch.zeros((10, 12, 3), dtype=torch.uint8, device=cuda)
+    maps = torch.eye(3)[None].repeat(2, 1, 1)
+    before = cuda_warp.LAUNCHES
+    with pytest.raises(ValueError, match="share their channels"):
+        warp_inverse_maps([img, img[..., :2]], maps, (8, 8))
+    with pytest.raises(ValueError, match="float32 on the CPU"):
+        warp_inverse_maps([img], maps[:1].to(cuda), (8, 8))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        warp_inverse_maps([img, img.cpu()], maps, (8, 8))
+    with pytest.raises(ValueError, match="unknown warp method"):
+        warp_inverse_maps([img], maps[:1], (8, 8), "cubic")
+    with pytest.raises(ValueError, match="non-empty"):
+        warp_inverse_maps([img[:0]], maps[:1], (8, 8))
+    with pytest.raises(torch.linalg.LinAlgError):
+        warp_perspective([img], np.zeros((1, 3, 3)), (8, 8))
+    assert cuda_warp.LAUNCHES == before
+
+
+def test_rectify_and_backwarp_make_no_host_sync(cuda):
+    left, right, _, _, _, F, _ = nonplanar_scene(np.random.default_rng(4), 240, 320)
+    left, right = torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)
+    disp = rectify_pair(left, right, F).left[..., 0]   # a view; builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rect = rectify_pair(left, right, F)
+        disparity_to_original_frame(disp, rect.homographies.H_right, (240, 320))
+        disparity_to_original_frame(disp, rect.homographies.H_right, (240, 320),
+                                    compat_left_homography=rect.homographies.H_left)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_rectify_and_backwarp_on_card_equal_cpu(cuda):
+    left, right, _, _, _, F, _ = nonplanar_scene(np.random.default_rng(2), 375, 450)
+    got = rectify_pair(torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda), F)
+    want = rectify_pair(torch.from_numpy(left), torch.from_numpy(right), F)
+    assert got.canvas == want.canvas
+    for side in ("left", "right"):
+        assert torch.equal(_bits(getattr(got, side).cpu()), _bits(getattr(want, side))), side
+    disp = np.random.default_rng(3).uniform(-5, 100, got.canvas).astype(np.float32)
+    for compat in (None, want.homographies.H_left):
+        args = (want.homographies.H_right, (375, 450))
+        g = disparity_to_original_frame(torch.from_numpy(disp).to(cuda), *args,
+                                        compat_left_homography=compat)
+        w = disparity_to_original_frame(torch.from_numpy(disp), *args,
+                                        compat_left_homography=compat)
+        assert torch.equal(_bits(g.cpu()), _bits(w))
+
+
+def test_warp_launches_twice_a_fixed_F_run_pair(cuda, tmp_path):
+    from stereo_reconstruction_tpu_torch.pipeline import compute_disparity
+
+    left, right, K, _, _, F, _ = nonplanar_scene(np.random.default_rng(4), 240, 320)
+    pair = StereoPair(left, right, K.astype(np.float32), K.astype(np.float32), name="F")
+    before = cuda_warp.LAUNCHES
+    run_pair(pair, PipelineConfig(matcher=MatcherConfig(block_size=7, max_disparity=80)),
+             fixed_F=F, device=cuda)
+    assert cuda_warp.LAUNCHES == before + 2
+    # the perceptual search on a rectified pair never warps
+    pl, pr = perceptual_pair(np.random.default_rng(1), 20, 60)
+    path = str(tmp_path / "narrow.npz")
+    save_params_npz(path, narrow_vgg_params())
+    config = PipelineConfig().replace(matcher=MatcherConfig(cost="perceptual", max_disparity=16),
+                                      perceptual=PerceptualConfig(weights_path=path))
+    compute_disparity(torch.from_numpy(pl).to(cuda), torch.from_numpy(pr).to(cuda), config)
+    assert cuda_warp.LAUNCHES == before + 2
+    # run_batch: the 2B rectifying warps in one launch, the back-warps in another
+    run_batch(_batch_pairs(), BATCH_CONFIG, uniforms=batch_uniforms(BATCH_CONFIG, 3),
+              device=cuda)
+    assert cuda_warp.LAUNCHES == before + 4

@@ -127,3 +127,29 @@ def scale_aligned(got_poses, got_points, want_points):
     poses = got_poses.astype(np.float64).copy()
     poses[:, 3:] *= s
     return poses, s * a, s
+
+
+def warp_images(rng, case):
+    """Two images of one of the inputs the twin takes beyond uint8 and
+    float32 contiguous (h, w[, 1 or 3]): another dtype, a view, other
+    channel counts, a uint8 and a float32 image together."""
+    import torch
+
+    def a(shape, dtype=np.float32):
+        return torch.from_numpy((rng.integers(0, 256, shape) if dtype == np.uint8 else
+                                 rng.uniform(-20, 300, shape)).astype(dtype))
+
+    if case == "float64":
+        return [a((30, 40, 3), np.float64), a((25, 33, 3), np.float64)]
+    if case == "int16":
+        return [a((30, 40), np.int16), a((25, 33), np.int16)]
+    if case == "view":           # a transposed and a strided view
+        return [a((40, 30, 3)).transpose(0, 1), a((50, 33, 3))[::2]]
+    if case in ("2ch", "4ch", "1ch"):
+        c = {"1ch": 1, "2ch": 2, "4ch": 4}[case]
+        return [a((30, 40, c), np.uint8), a((25, 33, c), np.uint8)]
+    assert case == "mixed"
+    return [a((30, 40, 3), np.uint8), a((25, 33, 3))]
+
+
+WARP_IMAGE_CASES = ["float64", "int16", "view", "1ch", "2ch", "4ch", "mixed"]
