@@ -14,6 +14,20 @@ import torch
 
 from stereo_reconstruction_tpu_torch.ops.cost_volume import sqrt_rn
 
+_CONSTANTS: dict = {}
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)`` for nested
+    tuples of numbers, made once per (values, dtype, device) and shared
+    after that, so that a call makes no copy from the host (a CUDA graph's
+    capture may not hold one). Never write to it."""
+    key = (values, dtype, torch.device(device))
+    found = _CONSTANTS.get(key)
+    if found is None:
+        found = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return found
+
 
 def skew(v: torch.Tensor) -> torch.Tensor:
     """Skew-symmetric cross-product matrix (reference utils.cpp:23-34):
@@ -106,7 +120,8 @@ def average_reconstruction_error(
 def fundamental_from_essential(E, K_left, K_right) -> torch.Tensor:
     """F = K_r^{-T} E K_l^{-1}, each matrix at unit Frobenius norm
     (reference eight_point.cpp:205-208; the JAX callers vmap it)."""
-    F = torch.linalg.inv(K_right).mT @ E @ torch.linalg.inv(K_left)
+    # inv_ex: inv's factor without its error check, which reads the device
+    F = torch.linalg.inv_ex(K_right).inverse.mT @ E @ torch.linalg.inv_ex(K_left).inverse
     norm = sqrt_rn(torch.sum(F * F, dim=(-2, -1), keepdim=True))
     return F / norm
 

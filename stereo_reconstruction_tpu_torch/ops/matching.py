@@ -12,7 +12,7 @@ Port of ``stereo_reconstruction_tpu/ops/matching.py``:
     the nearest match and the cross-check;
   * the duplicate-position filter of ``uniqueColumnsInMatrix``
     (utils.cpp:77-95: the first match per near-identical left position
-    survives), and ``matches_to_homogeneous``.
+    survives), ``matches_to_homogeneous`` and ``valid_first``.
 """
 
 from __future__ import annotations
@@ -98,3 +98,12 @@ def matches_to_homogeneous(matches: Matches):
     left = torch.cat([matches.left_xy, ones], dim=1).T
     right = torch.cat([matches.right_xy, ones], dim=1).T
     return left, right, matches.valid
+
+
+def valid_first(matches: Matches):
+    """``matches_to_homogeneous`` with the valid matches moved to the
+    front in their original order: (3, M) left, (3, M) right, and how many
+    are valid (a 0-d tensor)."""
+    left, right, valid = matches_to_homogeneous(matches)
+    order = torch.argsort((~valid).to(torch.int8), stable=True)
+    return left[:, order], right[:, order], torch.sum(valid)

@@ -31,15 +31,14 @@ from stereo_reconstruction_tpu_torch.io.pfm import write_pfm
 from stereo_reconstruction_tpu_torch.ops import metrics as metrics_mod
 from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
 from stereo_reconstruction_tpu_torch.ops.features import Keypoints, detect_and_describe_batch
-from stereo_reconstruction_tpu_torch.ops.matching import (
-    match_descriptors,
-    matches_to_homogeneous,
-)
+from stereo_reconstruction_tpu_torch.ops.matching import match_descriptors, valid_first
 from stereo_reconstruction_tpu_torch.perceptual import perceptual_window_search, vgg_module
 from stereo_reconstruction_tpu_torch.pose.pipeline import (
     PoseEstimate,
     estimate_pose_from_matches,
+    settle_pose,
 )
+from stereo_reconstruction_tpu_torch.pose.graphs import pose_graphs
 from stereo_reconstruction_tpu_torch.pose.ransac import draw_uniforms
 from stereo_reconstruction_tpu_torch.recon.backproject import backproject
 from stereo_reconstruction_tpu_torch.recon.disparity import (
@@ -77,16 +76,14 @@ def pose_from_keypoints(kp_left: Keypoints, kp_right: Keypoints, K_left: torch.T
                         K_right: torch.Tensor, uniforms: torch.Tensor,
                         config: PipelineConfig) -> PoseEstimate:
     """Match -> valid matches to the front -> RANSAC eight-point -> filter
-    -> BA for one pair's keypoints, on their device with no host sync and
-    no data-dependent Python branch, so ``torch.func.vmap`` batches it
-    (``pipeline_batch.pose_batch``)."""
-    ml, mr, valid = matches_to_homogeneous(
-        match_descriptors(kp_left, kp_right, config.frontend))
-    # valid matches to the front, in their original order
-    order = torch.argsort((~valid).to(torch.int8), stable=True)
-    return estimate_pose_from_matches(
-        ml[:, order], mr[:, order], K_left, K_right, config,
-        num_matches_valid=torch.sum(valid), uniforms=uniforms)
+    -> one BA round for one pair's keypoints, on their device with no host
+    sync and no data-dependent Python branch, so ``torch.func.vmap``
+    batches it (``pipeline_batch.pose_batch``); its caller settles BA
+    (``pose/pipeline.py::settle_pose``)."""
+    with span("pose.match"):
+        ml, mr, n_valid = valid_first(match_descriptors(kp_left, kp_right, config.frontend))
+    return estimate_pose_from_matches(ml, mr, K_left, K_right, config,
+                                      num_matches_valid=n_valid, uniforms=uniforms)
 
 
 def pose_device(images: torch.Tensor, K_left: torch.Tensor, K_right: torch.Tensor,
@@ -94,11 +91,20 @@ def pose_device(images: torch.Tensor, K_left: torch.Tensor, K_right: torch.Tenso
     """The sparse pose stage of one pair on device tensors (JAX
     ``pipeline._pose_device``): ``images`` (2, H, W, 3) left and right,
     the (3, 3) intrinsics and the (num_hypotheses, max_keypoints) RANSAC
-    draws. SIFT x2 runs as one batch of two images."""
-    kp = detect_and_describe_batch(images, config.frontend)
-    return pose_from_keypoints(Keypoints(*(x[0] for x in kp)),
-                               Keypoints(*(x[1] for x in kp)),
-                               K_left, K_right, uniforms, config)
+    draws. SIFT x2 runs as one batch of two images; BA runs up to
+    ``BA_ROUNDS`` rounds while it has not converged (JAX: one;
+    ``pose/pipeline.py::settle_pose``). On the card the stages after SIFT
+    replay CUDA graphs (``pose/graphs.py``), with the same result."""
+    with span("pose.features"):
+        kp = detect_and_describe_batch(images, config.frontend)
+    if images.device.type == "cuda":
+        graphs = pose_graphs(kp, K_left, K_right, uniforms, config)
+        return settle_pose(graphs(kp, K_left, K_right, uniforms), K_left, K_right, config,
+                           step=graphs.step)
+    est = pose_from_keypoints(Keypoints(*(x[0] for x in kp)),
+                              Keypoints(*(x[1] for x in kp)),
+                              K_left, K_right, uniforms, config)
+    return settle_pose(est, K_left, K_right, config)
 
 
 def estimate_pose(pair: StereoPair, config: PipelineConfig = PipelineConfig(),
@@ -110,8 +116,6 @@ def estimate_pose(pair: StereoPair, config: PipelineConfig = PipelineConfig(),
     come from a CPU generator seeded with ``config.seed``, so every device
     tries the same hypotheses. Everything after that runs on ``device``."""
     device = _device(device)
-    images = torch.stack([torch.as_tensor(np.asarray(pair.image_left)),
-                          torch.as_tensor(np.asarray(pair.image_right))]).to(device)
     if uniforms is None:
         uniforms = draw_uniforms(config.ransac, config.frontend.max_keypoints,
                                  torch.Generator().manual_seed(config.seed))
@@ -119,9 +123,12 @@ def estimate_pose(pair: StereoPair, config: PipelineConfig = PipelineConfig(),
     def intrinsics(K):
         return torch.as_tensor(np.asarray(K), dtype=torch.float32, device=device)
 
-    return pose_device(images, intrinsics(pair.intrinsics_left),
-                       intrinsics(pair.intrinsics_right),
-                       torch.as_tensor(uniforms, dtype=torch.float32).to(device), config)
+    with span("pose.upload"):
+        images = torch.stack([torch.as_tensor(np.asarray(pair.image_left)),
+                              torch.as_tensor(np.asarray(pair.image_right))]).to(device)
+        K_left, K_right = intrinsics(pair.intrinsics_left), intrinsics(pair.intrinsics_right)
+        uniforms = torch.as_tensor(uniforms, dtype=torch.float32).to(device)
+    return pose_device(images, K_left, K_right, uniforms, config)
 
 
 def compute_disparity(left, right, config: PipelineConfig) -> torch.Tensor:

@@ -7,7 +7,9 @@ Port of ``stereo_reconstruction_tpu/pipeline_batch.py`` (``run_batch``,
   pose, on the device:   SIFT over all 2B images as one batch, then
                          matching -> RANSAC eight-point -> BA for the B
                          pairs under ``torch.func.vmap`` (JAX vmaps the
-                         whole per-pair program, ``_pose_batch``);
+                         whole per-pair program, ``_pose_batch``); at the
+                         sync point BA is continued where a pair's has not
+                         converged (``settle_pose``; JAX: one round);
   host:                  Loop-Zhang homographies per pair (3x3 float64);
   dense, on the device:  the two warps onto the static canvas (the warp
                          kernel, one launch for up to 32 of the batch's 2B
@@ -35,8 +37,9 @@ pair, which torch cannot reproduce, so pair ``i`` of batch ``b`` draws
 from a CPU generator seeded by ``batch_uniforms`` (``config.seed``, ``b``,
 ``i``), and a CPU run and a card run try the same hypotheses.
 
-On CUDA every stage is asynchronous up to its first ``.cpu()``, the pose
-outputs' being the sync point (``np.asarray`` in JAX); ``run_batches``
+On CUDA every stage is asynchronous up to its first host read, BA's
+convergence flags being the sync point (the pose outputs' ``np.asarray``
+in JAX); ``run_batches``
 orders the stages so batch i+1's upload and pose are queued before batch
 i's host geometry waits.
 
@@ -74,7 +77,7 @@ from stereo_reconstruction_tpu_torch.parallel.mesh import Mesh
 from stereo_reconstruction_tpu_torch.parallel.multihost import ProcessGroupMesh
 from stereo_reconstruction_tpu_torch.pipeline import _device, compute_disparity, \
     pose_from_keypoints
-from stereo_reconstruction_tpu_torch.pose.pipeline import PoseEstimate
+from stereo_reconstruction_tpu_torch.pose.pipeline import PoseEstimate, settle_pose
 from stereo_reconstruction_tpu_torch.pose.ransac import draw_uniforms
 from stereo_reconstruction_tpu_torch.recon.disparity import (
     disparity_to_depth,
@@ -115,8 +118,15 @@ def pose_batch(left: torch.Tensor, right: torch.Tensor, K_left: torch.Tensor,
                config: PipelineConfig) -> PoseEstimate:
     """The sparse pose stage of B pairs, (B, H, W, 3) images, (B, 3, 3)
     intrinsics and (B, num_hypotheses, max_keypoints) draws on one device:
-    one detector batch of 2B images, then ``pipeline.pose_from_keypoints``
-    under ``torch.func.vmap``."""
+    ``_pose_dispatch``, then BA settled over the batch (``settle_pose``),
+    so each pair's pose is ``pipeline.pose_device``'s."""
+    return settle_pose(_pose_dispatch(left, right, K_left, K_right, uniforms, config),
+                       K_left, K_right, config)
+
+
+def _pose_dispatch(left, right, K_left, K_right, uniforms, config) -> PoseEstimate:
+    """One detector batch of 2B images, then ``pipeline.pose_from_keypoints``
+    under ``torch.func.vmap``: queued with no host sync."""
     B = left.shape[0]
     kp = detect_and_describe_batch(torch.cat([left, right]), config.frontend)
     kp_l = Keypoints(*(x[:B] for x in kp))
@@ -219,16 +229,18 @@ def _stage_upload(pairs, config: PipelineConfig, uniforms, blocks) -> List[_Stag
 
 def _stage_pose_dispatch(st: _Staged, config: PipelineConfig) -> None:
     t0 = time.perf_counter()
-    st.pose = pose_batch(st.L, st.R, st.KL, st.KR, st.uniforms, config)
+    st.pose = _pose_dispatch(st.L, st.R, st.KL, st.KR, st.uniforms, config)
     _add(st.timings, "pose_dispatch", time.perf_counter() - t0)
 
 
 def _stage_host_geometry(st: _Staged, config: PipelineConfig) -> None:
-    """Wait for the pose outputs, run host Loop-Zhang, queue the dense
-    stage and the batched metric."""
+    """Wait for the pose outputs, settle BA (``pose_batch``'s second
+    half), run host Loop-Zhang, queue the dense stage and the batched
+    metric."""
     B = len(st.pairs)
     t0 = time.perf_counter()
-    F_all = st.pose.fundamental.cpu().numpy().astype(np.float64)     # sync point
+    st.pose = settle_pose(st.pose, st.KL, st.KR, config)             # sync point
+    F_all = st.pose.fundamental.cpu().numpy().astype(np.float64)
     valid = st.pose.valid.cpu().numpy()
     st.err_ba = st.pose.reproj_error_ba.cpu().numpy()
     _add(st.timings, "pose", time.perf_counter() - t0)

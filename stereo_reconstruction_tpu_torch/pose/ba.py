@@ -8,7 +8,10 @@ blocks by forward-mode autodiff (``torch.func.vmap(torch.func.jacfwd)``);
 Huber IRLS weights; the 3x3 point blocks eliminated by closed-form
 inverses and the 6x6 camera system solved by an unrolled Cholesky. The
 ``max_iterations`` LM steps accept or reject with ``torch.where``, so the
-loop never waits on the device.
+loop never waits on the device. ``converged`` says whether the cost
+settled over the last ``SETTLE_WINDOW`` steps; from a start a few degrees
+off, LM alternates accepted and rejected steps and can still be descending
+after 20 (``pose.pipeline.settle_pose`` continues it there).
 """
 
 from __future__ import annotations
@@ -32,6 +35,14 @@ class BAResult(NamedTuple):
     initial_cost: torch.Tensor   # () weighted sum of squared residuals at start
     final_cost: torch.Tensor     # ()
     fundamental: torch.Tensor    # (3, 3) F from the optimised pose
+    converged: Optional[torch.Tensor] = None   # () bool: the cost settled
+
+
+# LM has converged when its last SETTLE_WINDOW steps lowered the cost by at
+# most SETTLE_RTOL of it: at 750x900, runs from good starts end below 4e-5,
+# runs still descending from starts 2-3 degrees off take 4e-2 to 2e-1 a step
+SETTLE_WINDOW = 3
+SETTLE_RTOL = 1e-3
 
 
 def _residuals_one(pose6, X, kp_left, kp_right, K_left, K_right):
@@ -79,8 +90,9 @@ def bundle_adjust(
     eye3 = torch.eye(3, device=device)
     eye6 = torch.eye(6, device=device)
     pose6, X = pose0, X0
-    lam = torch.tensor(config.init_lambda, dtype=torch.float32, device=device)
+    lam = torch.full((), config.init_lambda, dtype=torch.float32, device=device)
     c0 = current_cost = cost(pose0, X0)
+    history = [c0]
     for _ in range(config.max_iterations):
         r = residuals_all(pose6, X, kp_l, kp_r)
         # IRLS weights: 1 for L2; Huber clip beyond delta px per point
@@ -118,9 +130,12 @@ def bundle_adjust(
                           torch.clamp(lam * config.lambda_down, min=config.min_lambda),
                           torch.clamp(lam * config.lambda_up, max=config.max_lambda))
         current_cost = torch.where(accept, new_cost, current_cost)
+        history.append(current_cost)
 
+    before = history[max(len(history) - 1 - SETTLE_WINDOW, 0)]
     R = geo.angle_axis_to_rotation(pose6[:3])
     T = pose6[3:]
     F = geo.fundamental_from_essential(geo.essential_from_pose(R, T), K_left, K_right)
     return BAResult(rotation=R, translation=T, pose=pose_matrix(R, T), points=X.T,
-                    initial_cost=c0, final_cost=current_cost, fundamental=F)
+                    initial_cost=c0, final_cost=current_cost, fundamental=F,
+                    converged=before - current_cost <= SETTLE_RTOL * before)

@@ -35,7 +35,7 @@ class EightPointResult(NamedTuple):
 def pose_matrix(R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) [[R, T], [0, 1]], built out of place so that
     ``torch.func.vmap`` batches it."""
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    bottom = geo.constant((0.0, 0.0, 0.0, 1.0), R.dtype, R.device)
     top = torch.cat([R, T[..., :, None]], dim=-1)
     return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
 
@@ -62,9 +62,8 @@ def eight_point(
     # = +1 already, the state after the reference's sign fix
     U, Vt = small_linalg.svd3_for_essential(E0)
     dtype, device = E0.dtype, E0.device
-    sigma = torch.diag(torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=device))
-    Rz = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                      dtype=dtype, device=device)
+    sigma = torch.diag(geo.constant((1.0, 1.0, 0.0), dtype, device))
+    Rz = geo.constant(((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0)), dtype, device)
 
     def candidate(Rz_k):
         R = U @ Rz_k.T @ Vt

@@ -6,7 +6,9 @@ independent hypotheses solved in one batch): cheirality-invalid
 hypotheses are discarded, the winner has the most Sampson inliers over
 the full match set (ties to the lower mean sample error, then the lower
 index), and ``refine_rounds`` refits on the tightest ``refine_support``
-matches are kept when they lose no inliers.
+matches are kept when they lose no inliers. It also returns the best
+fitting of the hypotheses with the most inliers (``fit_pose``, by
+``match_fit``), for ``pose.pipeline.refine_pose``'s second BA.
 
 The draws are an input. JAX draws each hypothesis's uniforms from a
 threefry key, which torch cannot reproduce, so ``ransac_eight_point``
@@ -38,6 +40,8 @@ class RansacResult(NamedTuple):
     mean_error: torch.Tensor      # () mean px error over the winning sample
     success: torch.Tensor         # () bool: all sample errors < threshold
     valid: torch.Tensor           # () bool: some hypothesis is cheirality-valid
+    fit_pose: torch.Tensor        # (4, 4) of the most-inlier hypotheses, the best fitting
+    fit_error: torch.Tensor       # () its ``match_fit``
 
 
 def draw_uniforms(config: RansacConfig, n: int,
@@ -47,6 +51,15 @@ def draw_uniforms(config: RansacConfig, n: int,
         generator = torch.Generator().manual_seed(0)
     return torch.rand((config.num_hypotheses, n), generator=generator,
                       dtype=torch.float32)
+
+
+def match_fit(F, matches_left, matches_right, n_valid, threshold: float) -> torch.Tensor:
+    """How well F fits the first ``n_valid`` matches: their squared Sampson
+    distances, each capped at ``threshold`` squared (MSAC), averaged, px^2."""
+    in_range = torch.arange(matches_left.shape[-1], device=matches_left.device) < n_valid
+    d2 = torch.clamp_max(_sampson_sq(F, matches_left, matches_right), threshold ** 2)
+    return (torch.sum(torch.where(in_range, d2, 0.0), dim=-1)
+            / torch.clamp_min(n_valid, 1).to(torch.float32))
 
 
 def _sampson_sq(F, xl, xr):
@@ -100,22 +113,33 @@ def ransac_eight_point(
 
     inliers = torch.where(results.valid, full_inliers(results.essential), -1)
     score = inliers.to(torch.float32) - 1e-6 * mean_err
-    best = torch.argmax(score)
+    best = torch.argmax(score).reshape(1)
+    # the best fitting of the hypotheses with the most inliers, for
+    # ``pose.pipeline.refine_pose``'s second BA (float32 rounds the -1e-6 *
+    # mean_err away at a few hundred inliers, so ``best`` is the first of
+    # them, however it fits)
+    fits = match_fit(geo.fundamental_from_essential(results.essential, K_left, K_right),
+                     matches_left, matches_right, n_valid, config.error_threshold)
+    fit = torch.argmin(torch.where(inliers == torch.amax(inliers), fits, torch.inf)).reshape(1)
+
+    def pick(x):
+        # x[best] with a 0-d tensor index would read it on the host
+        return torch.index_select(x, 0, best)[0]
 
     support = min(config.refine_support, n)
-    init_sample = samples[best][: min(s, support)]
+    init_sample = pick(samples)[: min(s, support)]
     if init_sample.shape[0] < support:
         init_sample = torch.nn.functional.pad(init_sample,
                                               (0, support - init_sample.shape[0]))
     cur = dict(
-        rotation=results.rotation[best],
-        translation=results.translation[best],
-        essential=results.essential[best],
-        pose=results.pose[best],
+        rotation=pick(results.rotation),
+        translation=pick(results.translation),
+        essential=pick(results.essential),
+        pose=pick(results.pose),
         sample=init_sample,
-        inliers=inliers[best],
-        mean_error=mean_err[best],
-        success=all_below[best] & results.valid[best],
+        inliers=pick(inliers),
+        mean_error=pick(mean_err),
+        success=pick(all_below) & pick(results.valid),
     )
     # local refinement (eight_point.cpp:294-359): re-solve on the current
     # model's tightest `support` matches; keep a refit that is
@@ -151,4 +175,6 @@ def ransac_eight_point(
         mean_error=cur["mean_error"],
         success=cur["success"],
         valid=torch.any(results.valid),
+        fit_pose=torch.index_select(results.pose, 0, fit)[0],
+        fit_error=torch.index_select(fits, 0, fit)[0],
     )

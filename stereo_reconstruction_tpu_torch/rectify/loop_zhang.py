@@ -20,7 +20,8 @@ Faithfulness notes:
   * the projective step minimizes the Loop-Zhang distortion over z =
     (lambda, 1, 0): initial guess from the two generalized-eigen problems
     (``maximizeAddend``, rectification.cpp:381-398, including the
-    custom Cholesky's tolerance for tiny negative pivots), then
+    custom Cholesky's tolerance for tiny negative pivots, scaled here to
+    A: ``_cholesky_tolerant``), then
     Newton-Raphson on the closed-form derivative — implemented here with
     exact polynomial calculus over the quadratic forms instead of the
     reference's hand-expanded 8-term expressions (z_optimization.hpp:27-123,
@@ -179,10 +180,34 @@ def _compute_AB(width: int, height: int, mat: np.ndarray):
     return mat.T @ PPt @ mat, mat.T @ pcpct @ mat
 
 
+# A negative pivot above -PIVOT_ULPS ulps of A's largest diagonal entry is
+# rounding: the witness below needed 1.6
+PIVOT_ULPS = 64.0
+
+
+def pivot_tolerance(A: np.ndarray) -> float:
+    """The most negative diagonal pivot ``_cholesky_tolerant`` accepts, as a
+    positive number: the reference's absolute 1e-5, or PIVOT_ULPS float64
+    ulps of A's largest diagonal entry where that is more."""
+    return max(1e-5, PIVOT_ULPS * np.finfo(np.float64).eps * float(np.max(np.diag(A))))
+
+
 def _cholesky_tolerant(A: np.ndarray) -> np.ndarray:
     """The reference's custom 3x3 Cholesky (z_optimization.hpp:146-174):
-    lower-triangular factor with tiny negative pivots (> -1e-5) flipped
-    positive, returned transposed (upper-triangular)."""
+    lower-triangular factor with tiny negative pivots flipped positive,
+    returned transposed (upper-triangular).
+
+    The reference flips pivots above an absolute -1e-5 and throws below.
+    A = [e]x^T PP^T [e]x is PSD of rank 2 with a norm near 3e10 at
+    750x900, so its last pivot is a difference of numbers near 3e10 and
+    rounding alone leaves it a few ulps of them (~7e-6 each) either side of
+    zero: an F posed 0.027 / 0.230 degrees from the truth gave pivots
+    2549.5, 3671.3 and -1.1444e-5, 1.6 ulps of A[2, 2] (the witness of
+    ``tests/test_torch_rectify_pivot.py``). So a pivot is accepted down to
+    -``pivot_tolerance(A)``; every pivot the absolute bound accepted still
+    is, and gives the same factor bit for bit. JAX's copy and the C++ keep
+    the absolute bound and raise on such an F."""
+    tol = pivot_tolerance(A)
     L = np.zeros((3, 3))
     for i in range(3):
         for j in range(i + 1):
@@ -190,7 +215,7 @@ def _cholesky_tolerant(A: np.ndarray) -> np.ndarray:
             v = A[i, j] - s
             if i == j:
                 if v < 0.0:
-                    if v > -1e-5:
+                    if v >= -tol:
                         v = -v
                     else:
                         raise np.linalg.LinAlgError("matrix not PSD within tolerance")

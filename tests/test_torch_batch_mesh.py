@@ -33,18 +33,21 @@ fails.
 * (f) B not a multiple of ``data`` raises ``ValueError`` naming both; a
   ``multihost.ProcessGroupMesh`` (a gloo world of one) raises
   ``NotImplementedError`` with its reason.
-* (g) Draws that pose the scene wrong. With a wrong pose the disparities
-  follow every rounding of it, and neither package holds (c)'s 99.5% gate
-  between B = 2 unsharded and B = 1 a shard. ``[flat, scene]`` under the
-  JAX keys 5 and 10 (the scene takes ``fold_in(key, 1)``), the draws
-  carried across: both packages give the same ``pose_ok`` and a wrong
-  scene (bad-2.0 > 20% in all four runs; measured JAX 71.1 / 71.6% and
-  41.7 / 93.8%, the port 64.6 / 64.6% and 96.0 / 95.9%, unsharded / mesh),
-  JAX moves more than the gate (agreement 0.95033 and 0.33047) and the
-  port no more than JAX (0.99977 and 0.96713). The failed pair's
-  ``reproj_error_ba`` moves by more than the 1% gate in JAX. Under the
-  port's own draws (``batch_uniforms``, pair 1) the scene is wrong too
-  (bad-2.0 81.3 / 80.7%) and agrees 0.93892, held at >= 0.93.
+* (g) Draws with which one BA round poses the scene wrong. With a wrong
+  pose the disparities follow every rounding of it, and JAX does not hold
+  (c)'s 99.5% gate between B = 2 unsharded and B = 1 a shard.
+  ``[flat, scene]`` under the JAX keys 5 and 10 (the scene takes
+  ``fold_in(key, 1)``), the draws carried across: both packages give the
+  same ``pose_ok``; JAX's scene is wrong (bad-2.0 71.1 / 71.6% and 41.7 /
+  93.8%, unsharded / mesh) and moves more than the gate (agreement 0.95033
+  and 0.33047). The port continues BA there while it has not converged
+  (``settle_pose``; one round gave 64.6 / 64.6% and 96.0 / 95.9%, key 10
+  converges in the fourth), so its scene is right (bad-2.0 11.68 / 11.67%
+  and 12.09 / 12.03%) and holds the gate (0.99962 and 0.99682). The failed
+  pair's ``reproj_error_ba`` moves by more than the 1% gate in JAX. Under
+  the port's own draws (``batch_uniforms``, pair 1), wrong after one round
+  (bad-2.0 81.3 / 80.7%, agreement 0.93892), the scene is right too
+  (10.34 / 10.34%, agreement 0.99992).
 """
 
 import jax
@@ -219,13 +222,16 @@ def test_mesh_wrong_pose_moves_no_more_than_jax(wrong_pose):
     jax_runs, port_runs = wrong_pose
     for res in jax_runs + port_runs:
         assert np.asarray(res.pose_ok).tolist() == [False, True]
-        assert res.metrics[1]["bad_percent"] > 20.0          # the scene's pose is wrong
+    for res in jax_runs:
+        assert res.metrics[1]["bad_percent"] > 20.0          # JAX's scene pose is wrong
+    for res in port_runs:
+        assert res.metrics[1]["bad_percent"] < 15.0          # the port's, settled, is right
     for want, got in zip(jax_runs, port_runs):
         agree = np.mean(got.disparity[0] == np.asarray(want.disparity)[0])
         assert agree >= AGREEMENT, f"flat pair: agreement {agree:.5f} with JAX"
     jax_agree, port_agree = _agreement(jax_runs, 1), _agreement(port_runs, 1)
     assert jax_agree < 0.995, f"JAX holds the gate here ({jax_agree:.5f})"
-    assert port_agree >= jax_agree, f"port {port_agree:.5f} < JAX {jax_agree:.5f}"
+    assert port_agree >= 0.995, f"port {port_agree:.5f} below the gate"
     # the failed pair's BA error moves with B by more than the 1% gate in JAX
     err = [[r.metrics[0]["reproj_error_ba"] for r in runs] for runs in (jax_runs, port_runs)]
     assert abs(err[0][0] - err[0][1]) > 0.01, err
@@ -240,7 +246,7 @@ def test_mesh_wrong_pose_under_the_ports_own_draws():
             tpb.run_batch(pairs, CONFIG, uniforms=u, mesh=_mesh())]
     for res in runs:
         assert res.pose_ok.tolist() == [False, True]
-        assert res.metrics[1]["bad_percent"] > 20.0
+        assert res.metrics[1]["bad_percent"] < 15.0      # right once BA has settled
     np.testing.assert_array_equal(runs[0].disparity[0], runs[1].disparity[0])
     agree = _agreement(runs, 1)
-    assert agree >= 0.93, f"scene: agreement {agree:.5f} between B = 2 and B = 1"
+    assert agree >= 0.995, f"scene: agreement {agree:.5f} between B = 2 and B = 1"

@@ -12,7 +12,9 @@ planes, K2's volume and K3's disparity must equal the plain twins' bit for
 bit. K1 and K2 add in the same order, so K2's reductions equal K1's planes
 on any input. K1b (the exact row scan) equals its plain twin bit for bit
 on any planes. The pose stage is plain PyTorch; on the card it must give
-the port's CPU pose for the same RANSAC draws. ``run_batch`` launches one
+the port's CPU pose for the same RANSAC draws, and its stages after SIFT,
+replayed from CUDA graphs with no host synchronisation, equal the eager
+stages bit for bit. ``run_batch`` launches one
 K1 and one K1b per pair, agrees >= 99.5% with its plain backend, and masks
 a pair whose pose fails without moving its neighbours past 0.5%. The dense
 variants (SAD, NCC, the variable block) launch K1b once on the plain
@@ -390,6 +392,45 @@ def test_pose_stage_on_card_matches_cpu(cuda):
                                atol=1e-3)
     rot, trans = pose_angles(got.pose.cpu().numpy(), R, T)
     assert rot < 1.0 and trans < 5.0
+
+
+def test_pose_graphs_equal_the_eager_stage(cuda):
+    """The pose stage after SIFT replayed from CUDA graphs
+    (``pose/graphs.py``) equals the eager stage bit for bit, on the call
+    that captures and on a call with other draws, which replays with no
+    host synchronisation; the BA round graph equals ``ba_round``."""
+    from stereo_reconstruction_tpu_torch.ops.features import Keypoints, \
+        detect_and_describe_batch
+    from stereo_reconstruction_tpu_torch.pipeline import pose_from_keypoints
+    from stereo_reconstruction_tpu_torch.pose.graphs import pose_graphs
+    from stereo_reconstruction_tpu_torch.pose.pipeline import ba_round
+
+    pair, _, _ = _posed_pair()
+    cfg = PipelineConfig()
+    images = torch.stack([torch.from_numpy(pair.image_left),
+                          torch.from_numpy(pair.image_right)]).to(cuda)
+    K = torch.from_numpy(pair.intrinsics_left).to(cuda)
+    kp = detect_and_describe_batch(images, cfg.frontend)
+    for draw in (0, 1):
+        u = torch.rand((cfg.ransac.num_hypotheses, cfg.frontend.max_keypoints),
+                       generator=torch.Generator().manual_seed(draw)).to(cuda)
+        want = pose_from_keypoints(Keypoints(*(x[0] for x in kp)),
+                                   Keypoints(*(x[1] for x in kp)), K, K, u, cfg)
+        graphs = pose_graphs(kp, K, K, u, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = graphs(kp, K, K, u)
+            args = (got.keypoints_left, got.keypoints_right, K, K, got.pose, got.points,
+                    got.weights)
+            round_got = graphs.step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for field in want._fields:
+            assert torch.equal(getattr(got, field), getattr(want, field)), (draw, field)
+        for a, b in zip(round_got, ba_round(*args, cfg)):
+            assert torch.equal(a, b), draw
+    assert pose_graphs(kp, K, K, u, cfg) is graphs
 
 
 def _launches():
