@@ -60,14 +60,20 @@ code 1, no result line) if anything is off:
 9. the whole chain, ``run_pair()`` with no F, on the 750x900 non-planar
    scene (``nonplanar_scene``) at the default config (500 keypoints, 256
    RANSAC hypotheses, BA over 60 points, D=200, block 17): exactly one K1,
-   one K1b and two warp launches and no K2 or K3 launch; a valid pose with
-   enough points,
+   one K1b, two warp and two RANSAC launches (four on the first call, which
+   captures the pose stage's graphs) and no K2 or K3 launch; a valid pose
+   with enough points,
    ``pose_ok``, rotation < 0.5 deg and translation direction < 2 deg from
    the truth, BA reprojection error < 1 px; evaldisp total-bad < 20%
    against the true disparity; the 4x4 pose staged and reloaded; the same
    pose on three more runs, whose median stage times are printed; the
    port's CPU ``estimate_pose`` (same draws) within 0.05 deg in rotation
-   and 0.2 deg in translation direction; a profile of the pose stage;
+   and 0.2 deg in translation direction; the RANSAC kernel on the run's
+   own matches and draws (recomputed, and giving the run's RANSAC pose bit
+   for bit) against its twin with its rounding pinned
+   (``tests/ransac_twin.py``: equal samples, winner and fit, inlier counts
+   within 1, E, R and T within 1e-4), timed beside the twin's CUDA graph;
+   a profile of the pose stage;
 10. the batched main path, ``run_batch``, B = 4 at 750x900, D=200, block
    17: ``nonplanar_scene`` at seeds 0-2 and the flat-row pair
    (``flat_pair``, no keypoints) padded to 750x900. ``pose_ok`` 1, 1, 1, 0;
@@ -75,8 +81,8 @@ code 1, no result line) if anything is off:
    disparities; >= 99.5% agreement with the same batch on the plain
    backend (same draws), of each good pair with itself in a batch of one,
    and of the masked batch with the batch without the degenerate pair;
-   exactly 4 K1, 4 K1b and 2 warp launches (2 a shard on a mesh) and no K2
-   or K3 launch, counted by the
+   exactly 4 K1, 4 K1b, 2 warp and 2 RANSAC launches (2 and 2 a shard on a
+   mesh) and no K2 or K3 launch, counted by the
    wrappers and seen by torch.profiler; stage times and pairs/s at B = 1
    and 4 (median of 3 after a warm-up);
 11. the command line: a MiddEval3-shaped tree of one 750x900 scene
@@ -136,13 +142,16 @@ code 1, no result line) if anything is off:
    (``multihost``, a ``file://`` store) running the exact matcher equal
    to the one-process mesh.
 
-``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp]`` times K1, K1b,
-K2 and K3 at shape (b), K4 at 375x450 (D=100 and 200, and one strip
-alone) and the warp kernel at the fixed-F request's shapes, or only the
+``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp ransac]`` times K1,
+K1b, K2 and K3 at shape (b), K4 at 375x450 (D=100 and 200, and one strip
+alone), the warp kernel at the fixed-F request's shapes and the RANSAC
+kernel at the posed request's (N = 500, 256 hypotheses), or only the
 kernels named, and prints one JSON line (``time_kernels``).
 
 Each path (5, 6, 8, 9, 10, 12, 13, 14, 15) runs with every launch count
-(K1 to K4 and the warp) set to 0 just before it and read just after; the
+(K1 to K4, the warp and RANSAC) set to 0 just before it and read just
+after: two RANSAC launches a posed ``run_pair`` and a ``run_batch`` shard,
+none a fixed-F request; the
 launches made to compare a kernel with its twin are not counted. The line before the last is ``{"kernels": [...]}``, each
 kernel with its bound (the larger of its bytes over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s, counted for this run's inputs by
@@ -289,6 +298,51 @@ def _median_queued_ms(fn, torch, calls=CALLS, sleep_cycles=100_000_000):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1) / calls)
     return statistics.median(times)
+
+
+def ransac_times(torch, ml, mr, K, nv, u, cfg):
+    """(kernel ms, ms of its twin replayed from a CUDA graph, as the pose
+    stage replayed it before the kernel) of RANSAC on one pair's card
+    tensors: (3, N) matches, (3, 3) intrinsics, a 0-d valid count and
+    (num_hypotheses, N) draws; each queued (``_median_queued_ms``). Its own
+    calls are counted in ``cuda_ransac.LAUNCHES``."""
+    from stereo_reconstruction_tpu_torch.kernels.build import load_library
+    from stereo_reconstruction_tpu_torch.ops import cuda_ransac
+    from stereo_reconstruction_tpu_torch.pose.ransac import ransac_plain
+
+    dev, n = ml.device, ml.shape[-1]
+    args = (ml[None], mr[None], K[None], K[None], nv.reshape(1), u[None])
+    out = cuda_ransac.result_buffers((1,), cuda_ransac.support_of(cfg, n), dev)
+    scratch = cuda_ransac.scratch_buffers(load_library(), 1, cfg, n, dev)
+    kernel_ms = _median_queued_ms(lambda: cuda_ransac.ransac(*args, cfg, out, scratch), torch)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        ransac_plain(ml, mr, K, K, cfg, nv, u)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ransac_plain(ml, mr, K, K, cfg, nv, u)
+    return kernel_ms, _median_queued_ms(graph.replay, torch, calls=2)
+
+
+def request_matches(name, n):
+    """A benchmark request's valid matches saved under ``tests/data/<name>.npz``
+    (``posed_request_matches``: 222 at 750x900; ``far_winner_request``: 241)
+    as (3, n) homogeneous matches padded with seeded pixels: (left, right,
+    n_valid)."""
+    import torch
+
+    d = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                             f"{name}.npz"))
+    rng = np.random.default_rng(SEED)
+    nv = len(d["left"])
+    sides = []
+    for side in ("left", "right"):
+        xy = rng.uniform(0, 900, (n, 2)).astype(np.float32)
+        xy[:nv] = d[side]
+        sides.append(torch.from_numpy(np.concatenate([xy.T, np.ones((1, n), np.float32)])))
+    return sides[0], sides[1], nv
 
 
 def _max_abs_err(got, want):
@@ -571,7 +625,8 @@ def _kernel_split(call, torch):
 
 KERNEL_NAMES = {"K1": "matcher_inputs_kernel", "K1b": "row_scan_kernel",
                 "K2": "cost_volume_kernel", "K3": "block_search_rows_kernel",
-                "K4": "perceptual_scan_kernel", "warp": "warp_kernel"}
+                "K4": "perceptual_scan_kernel", "warp": "warp_kernel",
+                "ransac": "stpu::ransac::"}
 
 
 def _profiled_launches(call, torch):
@@ -657,7 +712,7 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
     u = batch_uniforms(config, B)
     reset_counts()
     res = run_batch(pairs, config, uniforms=u, device=dev)
-    if counts() != expected(K1=B, K1b=B, warp=2):
+    if counts() != expected(K1=B, K1b=B, warp=2, ransac=2):
         raise AssertionError(f"run_batch launches {counts()}: want {B} K1, {B} K1b and 2 "
                              f"warps (the {2 * B} rectifying images, the back-warps)")
     launches = {"K1": counts()["K1"], "K1b": counts()["K1b"]}
@@ -680,7 +735,7 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
     plain = run_batch(pairs, config.replace(matcher=dataclasses.replace(config.matcher,
                                                                         backend="xla")),
                       uniforms=u, device=dev)
-    if counts() != expected(warp=2):
+    if counts() != expected(warp=2, ransac=2):
         raise AssertionError(f"plain run_batch launched matcher kernels: {counts()}")
     agree_plain = [float(np.mean(res.disparity[i] == plain.disparity[i])) for i in range(B)]
     agree_one = [float(np.mean(res.disparity[i] == run_batch(
@@ -700,7 +755,7 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
         lambda: run_batch(pairs, config, uniforms=u, device=dev), torch)
     if seen is None:
         raise AssertionError("the profiler saw no device work in run_batch")
-    if seen != expected(K1=B, K1b=B, warp=2):
+    if seen != expected(K1=B, K1b=B, warp=2, ransac=2):
         raise AssertionError(f"the profiler saw {seen} in run_batch: want {B} K1, "
                              f"{B} K1b and 2 warps")
     print(f"[batch] torch.profiler in run_batch B={B}: {seen}; {n_kernels} device "
@@ -710,7 +765,7 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
     mesh = make_mesh(data=2, tile=1, devices=[dev, dev])
     reset_counts()
     sharded = run_batch(pairs, config, uniforms=u, mesh=mesh)
-    if counts() != expected(K1=B, K1b=B, warp=4):
+    if counts() != expected(K1=B, K1b=B, warp=4, ransac=4):
         raise AssertionError(f"run_batch(mesh=) launches {counts()}: want {B} K1, {B} K1b "
                              f"and 2 warps a shard")
     if sharded.disparity.shape != padded or not np.isfinite(sharded.disparity).all():
@@ -742,14 +797,14 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
         lambda: run_batch(pairs, config, uniforms=u, mesh=mesh), torch)
     if seen is None:
         raise AssertionError("the profiler saw no device work in run_batch(mesh=)")
-    if seen != expected(K1=B, K1b=B, warp=4):
+    if seen != expected(K1=B, K1b=B, warp=4, ransac=4):
         raise AssertionError(f"the profiler saw {seen} in run_batch(mesh=): want {B} K1, "
                              f"{B} K1b and 4 warps")
     print(f"[batch] torch.profiler in run_batch(mesh=) B={B}: {seen}; {n_kernels} device "
           f"kernels in all, {device_ms:.1f} ms device time", flush=True)
     reset_counts()
     piped = run_batches([pairs, pairs], config, mesh=mesh)
-    if counts() != expected(K1=2 * B, K1b=2 * B, warp=8):
+    if counts() != expected(K1=2 * B, K1b=2 * B, warp=8, ransac=8):
         raise AssertionError(f"run_batches(mesh=) launches {counts()}: want {2 * B} K1 and "
                              f"K1b, 8 warps")
     _same_batch_result(piped[0], sharded, "run_batches(mesh=) batch 0 vs run_batch(mesh=)")
@@ -920,7 +975,7 @@ def variants_phase(torch, dev, smi, rect, pair, F, batch_pair, counts, reset_cou
     config = base.replace(matcher=MatcherConfig(cost="ncc"))
     reset_counts()
     res = run_batch([batch_pair], config, uniforms=batch_uniforms(config, 1), device=dev)
-    if counts() != expected(K1b=1, warp=2) or not res.pose_ok[0]:
+    if counts() != expected(K1b=1, warp=2, ransac=2) or not res.pose_ok[0]:
         raise AssertionError(f"[variants] run_batch ncc: launches {counts()}, "
                              f"{res.metrics}")
     if not res.metrics[0]["bad_percent"] < MAX_TOTAL_BAD:
@@ -1599,7 +1654,7 @@ def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=140
 
 
 def time_kernels(only=()) -> int:
-    """``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp]``: K1,
+    """``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp ransac]``: K1,
     K1b, K2 and K3 at shape (b) on the integer-valued pair, and K1b seeded on the
     exact sharded matcher's 282-row tile of it (``K1b_tile``); K4 on a
     planted ``perceptual_volume`` at 375x450, D=100, chunk 20, one 20-column
@@ -1609,7 +1664,12 @@ def time_kernels(only=()) -> int:
     1128x1408 canvas, bilinear, one launch (``warp_rectify``), and a float32
     canvas back to 750x900, nearest (``warp_back``), each beside its plain
     twin on the card (``*_plain``) and its bound (``bound_ms``), the calls
-    queued behind a sleeping kernel (``_median_queued_ms``). Names given:
+    queued behind a sleeping kernel (``_median_queued_ms``); the RANSAC
+    kernel (two launches) on the posed request's matches
+    (``tests/data/posed_request_matches.npz``, 222 valid, padded to N = 500)
+    with 256 hypotheses (``ransac``), beside its twin replayed from a CUDA
+    graph as the pose stage replayed it before the kernel
+    (``ransac_plain_graph``), queued the same way. Names given:
     only those kernels. CUDA events, median of REPEATS over CALLS back-to-back calls
     (K3 one call a sample), as one JSON line. It uses only arguments the
     wrappers have taken since seeded rows came in, so a copy of this file
@@ -1628,7 +1688,7 @@ def time_kernels(only=()) -> int:
     from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
     from stereo_reconstruction_tpu_torch.perceptual import scan as pscan
 
-    only = set(only) or {"K1", "K1b", "K2", "K3", "K4", "warp"}
+    only = set(only) or {"K1", "K1b", "K2", "K3", "K4", "warp", "ransac"}
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1697,10 +1757,23 @@ def time_kernels(only=()) -> int:
             ms[key] = _median_queued_ms(fn, torch)
         bounds["warp_rectify"] = warp_bound(750, 900, 3, 1, *canvas, images=2)
         bounds["warp_back"] = warp_bound(*canvas, 1, 4, 750, 900, nearest=True)
+    if "ransac" in only:
+        from stereo_reconstruction_tpu_torch.config import RansacConfig
+        from stereo_reconstruction_tpu_torch.pose.ransac import draw_uniforms
+        from stereo_reconstruction_tpu_torch.utils.roofline import ransac_bound
+
+        cfg = RansacConfig()
+        ml, mr, nv = request_matches("posed_request_matches", 500)
+        ml, mr, nv = ml.to(dev), mr.to(dev), torch.tensor(nv, device=dev)
+        K = torch.tensor(_camera_pair(750, 900)[0], dtype=torch.float32, device=dev)
+        u = draw_uniforms(cfg, 500, torch.Generator().manual_seed(SEED)).to(dev)
+        ms["ransac"], ms["ransac_plain_graph"] = ransac_times(torch, ml, mr, K, nv, u, cfg)
+        bounds["ransac"] = ransac_bound(500)
     print(json.dumps({"card": smi, "checkout": os.path.dirname(os.path.abspath(__file__)),
                       "shape": "(b) 1128x1408, D=200, block 17; K4 375x450, chunk 20 "
                                "(394 diagonals a strip); warp 750x900x3 uint8 x 2 -> "
-                               "1128x1408, 1128x1408 float32 -> 750x900", "ms": ms,
+                               "1128x1408, 1128x1408 float32 -> 750x900; RANSAC N=500, "
+                               "256 hypotheses of 8, 2 refits on 16", "ms": ms,
                       "bound_ms": bounds}))
     return 0
 
@@ -1720,6 +1793,7 @@ def main() -> int:
     from stereo_reconstruction_tpu_torch.kernels import build
     from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
     from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
+    from stereo_reconstruction_tpu_torch.ops import cuda_ransac as cransac
     from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
     from stereo_reconstruction_tpu_torch.ops import cuda_warp as cwarp
     from stereo_reconstruction_tpu_torch.ops import smoothing
@@ -1738,14 +1812,15 @@ def main() -> int:
 
     def reset_counts():
         ccv.LAUNCHES = crs.LAUNCHES = ccv.VOLUME_LAUNCHES = cbs.LAUNCHES = pscan.LAUNCHES = 0
-        cwarp.LAUNCHES = 0
+        cwarp.LAUNCHES = cransac.LAUNCHES = 0
 
     def counts():
         return {"K1": ccv.LAUNCHES, "K1b": crs.LAUNCHES, "K2": ccv.VOLUME_LAUNCHES,
-                "K3": cbs.LAUNCHES, "K4": pscan.LAUNCHES, "warp": cwarp.LAUNCHES}
+                "K3": cbs.LAUNCHES, "K4": pscan.LAUNCHES, "warp": cwarp.LAUNCHES,
+                "ransac": cransac.LAUNCHES}
 
     def expected(**k):
-        return {"K1": 0, "K1b": 0, "K2": 0, "K3": 0, "K4": 0, "warp": 0, **k}
+        return {"K1": 0, "K1b": 0, "K2": 0, "K3": 0, "K4": 0, "warp": 0, "ransac": 0, **k}
 
     # 1. device
     smi = subprocess.run(
@@ -1771,7 +1846,7 @@ def main() -> int:
         "c": dict(h=21, w=40, wl_extra=9, bs=5, min_d=2, max_d=12),
         "d": dict(h=101, w=200, wl_extra=0, bs=9, min_d=1, max_d=31),
     }
-    max_err = {"K1": 0.0, "K1b": 0.0, "K2": 0.0, "K3": 0.0, "warp": 0.0}
+    max_err = {"K1": 0.0, "K1b": 0.0, "K2": 0.0, "K3": 0.0, "warp": 0.0, "ransac": 0.0}
     times = {}
     bounds = {}
     for key, s in shapes.items():
@@ -2143,9 +2218,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         reset_counts()
         res = run_pair(pair, config, output_dir=tmp, write_mesh=True, device=dev)
-        if counts() != expected(K1=1, K1b=1, warp=2):
-            raise AssertionError(f"run_pair() launches {counts()}: want one K1, one K1b and "
-                                 f"two warps")
+        # the first posed call captures the pose stage's graphs, launching
+        # RANSAC once more to feed the refine graph's capture (pose/graphs.py)
+        if counts() != expected(K1=1, K1b=1, warp=2, ransac=4):
+            raise AssertionError(f"run_pair() launches {counts()}: want one K1, one K1b, "
+                                 f"two warps and four RANSAC (two and the capture's two)")
         pose = res.pose
         P = pose.pose.cpu().numpy()
         rot, trans = pose_angles(P, R_true, T_true)
@@ -2179,13 +2256,50 @@ def main() -> int:
     for _ in range(3):
         reset_counts()
         r = run_pair(pair, config, device=dev)
-        if counts() != expected(K1=1, K1b=1, warp=2):
+        if counts() != expected(K1=1, K1b=1, warp=2, ransac=2):
             raise AssertionError(f"run_pair() launches {counts()}")
+        launches["ransac"] = counts()["ransac"]
         if not torch.equal(r.pose.pose, pose.pose):
             raise AssertionError("run_pair() pose is not deterministic")
         runs.append(r.timings)
     med = {k: statistics.median(t[k] for t in runs) * 1e3
            for k in ("pose", "rectify", "disparity", "recon")}
+
+    # the RANSAC kernel on this run's matches and draws (recomputed, and shown
+    # to be the run's by its RANSAC pose) against its pinned twin
+    from ransac_twin import card_kernel, compare as compare_ransac
+    from stereo_reconstruction_tpu_torch.ops.features import Keypoints, \
+        detect_and_describe_batch
+    from stereo_reconstruction_tpu_torch.ops.matching import match_descriptors, valid_first
+    from stereo_reconstruction_tpu_torch.pose.ransac import draw_uniforms
+    from stereo_reconstruction_tpu_torch.utils.roofline import ransac_bound
+
+    images = torch.stack([torch.from_numpy(left_np), torch.from_numpy(right_np)]).to(dev)
+    kp = detect_and_describe_batch(images, config.frontend)
+    ml, mr, nv = valid_first(match_descriptors(Keypoints(*(x[0] for x in kp)),
+                                               Keypoints(*(x[1] for x in kp)), config.frontend))
+    u = draw_uniforms(config.ransac, ml.shape[-1],
+                      torch.Generator().manual_seed(config.seed)).to(dev)
+    Kd = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    got, want, dev_r = compare_ransac(card_kernel, ml, mr, nv, config.ransac, Kd, u, dev)
+    if not torch.equal(got.pose[0], pose.pose_ransac.cpu()):
+        raise AssertionError("the RANSAC kernel on the recomputed matches does not give the "
+                             "run's RANSAC pose")
+    max_err["ransac"] = max(_max_abs_err(getattr(got, f)[0], getattr(want, f))
+                            for f in got._fields if getattr(want, f).dtype.is_floating_point)
+    times["ransac", "pose"] = ransac_times(torch, ml, mr, Kd, nv, u, config.ransac)
+    bounds["ransac", "pose"] = ransac_bound(ml.shape[-1], config.ransac.num_hypotheses,
+                                           config.ransac.sample_size,
+                                           cransac.support_of(config.ransac, ml.shape[-1]),
+                                           config.ransac.refine_rounds)
+    print(f"[pose] {smi}: RANSAC kernel on the run's {ml.shape[-1]} matches ({int(nv)} "
+          f"valid), {config.ransac.num_hypotheses} hypotheses: its twin's samples, winner "
+          f"and fit; largest deviations "
+          + ", ".join(f"{k} {v:.3g}" for k, v in dev_r.items())
+          + f"; result max |err| {max_err['ransac']:.3g}; kernel "
+          f"{times['ransac', 'pose'][0]:.4f} ms, twin's graph {times['ransac', 'pose'][1]:.2f} "
+          f"ms, bound {bounds['ransac', 'pose'][0] * 1e3:.4f} us (median of {REPEATS}, queued)",
+          flush=True)
     print(f"[pose] {smi}: run_pair() stage ms (median of 3 after the first run): "
           + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
           + "; the same pose every run", flush=True)
@@ -2242,11 +2356,14 @@ def main() -> int:
          "stereo_reconstruction_tpu/ops/warp.py:41", ("warp", "rectify")),
         ("warp", "perspective warp, the disparity back-warp", csrc + "warp.cuh",
          "stereo_reconstruction_tpu/ops/warp.py:41", ("warp", "back")),
+        ("ransac", "RANSAC: hypotheses, scores, winner and refits", csrc + "ransac.cuh",
+         None, ("ransac", "pose")),       # not a TPU kernel: JAX's RANSAC is plain jnp
     ]
     at = {"b": "1128x1408 canvas, D=200, block 17", "canvas": "1128x1408 canvas, D=200, block 17",
           "scene": "375x450, D=100, window 17, chunk 20 (the windowed volume)",
           "rectify": "both uint8 750x900x3 images -> 1128x1408 canvas, bilinear, one launch",
-          "back": "1128x1408 float32 disparity -> 750x900, nearest"}
+          "back": "1128x1408 float32 disparity -> 750x900, nearest",
+          "pose": "the posed run_pair's 500 matches, 256 hypotheses of 8, 2 refits on 16"}
     print(json.dumps({"kernels": [{
         "name": f"{k} {name}",
         "route": "cuda",

@@ -131,5 +131,13 @@ def load_library() -> ctypes.CDLL:
         lib.stpu_warp_max_images.restype = i
         lib.stpu_warp_error.argtypes = [i]
         lib.stpu_warp_error.restype = ctypes.c_char_p
+        lib.stpu_ransac.argtypes = [p, p, ctypes.c_float, ctypes.c_float, p]
+        lib.stpu_ransac.restype = i
+        for name in ("stpu_ransac_max_points", "stpu_ransac_shared_keys",
+                     "stpu_ransac_hyp_floats", "stpu_ransac_hyp_ints"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        lib.stpu_ransac_error.argtypes = [i]
+        lib.stpu_ransac_error.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB

@@ -7,7 +7,9 @@ eliminates its own point blocks; the reduced 6x6 camera system (S, rhs),
 iteration, and the costs of the accept test in one more. The pose update
 is computed on every shard alike, the point back-substitution stays
 local. The batched form advances B independent problems in lockstep and
-reduces their systems as one (B, 42) ``psum``.
+reduces their systems as one (B, 42) ``psum``; each problem's own
+arithmetic is that of a batch of one, so each gives the same bits as
+``distributed_bundle_adjust`` on it alone (JAX: the same semantics).
 """
 
 from __future__ import annotations
@@ -24,7 +26,14 @@ from stereo_reconstruction_tpu_torch.pose.eight_point import pose_matrix
 
 
 def _local_lm(config: BundleAdjustmentConfig, shard_axes: tuple):
-    """The per-shard body: B problems (leading axis) of the shard's points."""
+    """The per-shard body: B problems (leading axis) of the shard's points.
+
+    Each problem's arithmetic runs on its own slice and only the
+    collectives take the batch, so that a problem's result does not depend
+    on the batch it rides in: on the card a batched product or reduction
+    may round apart from a single one, and the pose's translation and the
+    points share a scale that no residual sees, along which the damped
+    solve carries such a difference on (~1e4 times)."""
 
     async def psum_all(shard, x):
         for ax in shard_axes:
@@ -36,31 +45,38 @@ def _local_lm(config: BundleAdjustmentConfig, shard_axes: tuple):
         def res_fn(pose6, X, kl, kr):
             return _residuals_one(pose6, X, kl, kr, K_left, K_right)
 
-        residuals = vmap(vmap(res_fn, in_dims=(None, 0, 0, 0)))        # (B, Nl, 4)
+        residuals = vmap(vmap(res_fn, in_dims=(None, 0, 0, 0)))        # (1, Nl, 4)
         jac_pose = vmap(vmap(jacfwd(res_fn, argnums=0), in_dims=(None, 0, 0, 0)))
         jac_point = vmap(vmap(jacfwd(res_fn, argnums=1), in_dims=(None, 0, 0, 0)))
         device = X0.device
         eye3 = torch.eye(3, device=device)
         eye6 = torch.eye(6, device=device)
+        pairs = range(pose0.shape[0])
+        # problem b's observations, each (1, ...)
+        kl = [kp_l[b:b + 1] for b in pairs]
+        kr = [kp_r[b:b + 1] for b in pairs]
+        wb = [w[b:b + 1] for b in pairs]
 
-        async def cost(pose6, X):
-            r = residuals(pose6, X, kp_l, kp_r)
-            return await psum_all(shard, torch.sum((r * r) * w[..., None], dim=(1, 2)))
+        async def costs(poses, Xs):
+            parts = []
+            for b in pairs:
+                r = residuals(poses[b], Xs[b], kl[b], kr[b])
+                parts.append(torch.sum((r * r) * wb[b][..., None], dim=(1, 2)))
+            total = await psum_all(shard, torch.cat(parts))
+            return [total[b:b + 1] for b in pairs]
 
-        pose6, X = pose0, X0
-        lam = torch.full((pose0.shape[0],), config.init_lambda, dtype=torch.float32,
-                         device=device)
-        c0 = current_cost = await cost(pose0, X0)
-        for _ in range(config.max_iterations):
-            r = residuals(pose6, X, kp_l, kp_r)
+        def schur(b, pose6, X, lam):
+            """Problem b's damped point blocks eliminated: (C_inv, E, g) and
+            its local (1, 42) camera system, S and rhs packed."""
+            r = residuals(pose6, X, kl[b], kr[b])
             if config.loss == "huber":
                 err = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-12)
-                rw = w * torch.sqrt(torch.clamp(config.huber_delta / err, max=1.0))
+                rw = wb[b] * torch.sqrt(torch.clamp(config.huber_delta / err, max=1.0))
             else:
-                rw = w
+                rw = wb[b]
             r = r * rw[..., None]
-            Jp = jac_pose(pose6, X, kp_l, kp_r) * rw[..., None, None]      # (B, Nl, 4, 6)
-            Jx = jac_point(pose6, X, kp_l, kp_r) * rw[..., None, None]     # (B, Nl, 4, 3)
+            Jp = jac_pose(pose6, X, kl[b], kr[b]) * rw[..., None, None]      # (1, Nl, 4, 6)
+            Jx = jac_point(pose6, X, kl[b], kr[b]) * rw[..., None, None]     # (1, Nl, 4, 3)
 
             Bm = torch.einsum("bnri,bnrj->bij", Jp, Jp)
             E = torch.einsum("bnri,bnrj->bnij", Jp, Jx)
@@ -72,25 +88,37 @@ def _local_lm(config: BundleAdjustmentConfig, shard_axes: tuple):
             EC = E @ C_inv
             S_local = Bm - torch.einsum("bnij,bnkj->bik", EC, E)
             rhs_local = v - torch.einsum("bnij,bnj->bi", EC, g)
-            # the one collective of the step: S and rhs packed, (B, 42)
-            packed = await psum_all(
-                shard, torch.cat([S_local.reshape(-1, 36), rhs_local], dim=1))
-            S = packed[:, :36].reshape(-1, 6, 6) + lam[:, None, None] * eye6
-            d_pose = small_linalg.solve_spd_small(S, packed[:, 36:])
-            d_X = torch.einsum("bnij,bnj->bni", C_inv,
-                               g - torch.einsum("bnji,bj->bni", E, d_pose))
+            return (C_inv, E, g), torch.cat([S_local.reshape(-1, 36), rhs_local], dim=1)
 
-            new_pose = pose6 + d_pose
-            new_X = X + d_X
-            new_cost = await cost(new_pose, new_X)
-            accept = new_cost < current_cost
-            pose6 = torch.where(accept[:, None], new_pose, pose6)
-            X = torch.where(accept[:, None, None], new_X, X)
-            lam = torch.where(accept,
-                              torch.clamp(lam * config.lambda_down, min=config.min_lambda),
-                              torch.clamp(lam * config.lambda_up, max=config.max_lambda))
-            current_cost = torch.where(accept, new_cost, current_cost)
-        return pose6, X, c0, current_cost
+        poses = [pose0[b:b + 1] for b in pairs]
+        Xs = [X0[b:b + 1] for b in pairs]
+        lams = [torch.full((1,), config.init_lambda, dtype=torch.float32, device=device)
+                for _ in pairs]
+        c0 = await costs(poses, Xs)
+        current = list(c0)
+        for _ in range(config.max_iterations):
+            blocks, systems = zip(*(schur(b, poses[b], Xs[b], lams[b]) for b in pairs))
+            # the one collective of the step: every problem's S and rhs, (B, 42)
+            packed = await psum_all(shard, torch.cat(systems))
+            new_poses, new_Xs = [], []
+            for b in pairs:
+                C_inv, E, g = blocks[b]
+                S = packed[b:b + 1, :36].reshape(-1, 6, 6) + lams[b][:, None, None] * eye6
+                d_pose = small_linalg.solve_spd_small(S, packed[b:b + 1, 36:])
+                d_X = torch.einsum("bnij,bnj->bni", C_inv,
+                                   g - torch.einsum("bnji,bj->bni", E, d_pose))
+                new_poses.append(poses[b] + d_pose)
+                new_Xs.append(Xs[b] + d_X)
+            new = await costs(new_poses, new_Xs)
+            for b in pairs:
+                accept = new[b] < current[b]
+                poses[b] = torch.where(accept[:, None], new_poses[b], poses[b])
+                Xs[b] = torch.where(accept[:, None, None], new_Xs[b], Xs[b])
+                lams[b] = torch.where(
+                    accept, torch.clamp(lams[b] * config.lambda_down, min=config.min_lambda),
+                    torch.clamp(lams[b] * config.lambda_up, max=config.max_lambda))
+                current[b] = torch.where(accept, new[b], current[b])
+        return torch.cat(poses), torch.cat(Xs), torch.cat(c0), torch.cat(current)
 
     return local
 

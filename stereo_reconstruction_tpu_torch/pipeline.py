@@ -28,6 +28,7 @@ from stereo_reconstruction_tpu_torch.config import PipelineConfig
 from stereo_reconstruction_tpu_torch.data.records import StereoPair
 from stereo_reconstruction_tpu_torch.io.image import disparity_png_roundtrip
 from stereo_reconstruction_tpu_torch.io.pfm import write_pfm
+from stereo_reconstruction_tpu_torch.ops import cuda_ransac
 from stereo_reconstruction_tpu_torch.ops import metrics as metrics_mod
 from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
 from stereo_reconstruction_tpu_torch.ops.features import Keypoints, detect_and_describe_batch
@@ -95,6 +96,8 @@ def pose_device(images: torch.Tensor, K_left: torch.Tensor, K_right: torch.Tenso
     ``BA_ROUNDS`` rounds while it has not converged (JAX: one;
     ``pose/pipeline.py::settle_pose``). On the card the stages after SIFT
     replay CUDA graphs (``pose/graphs.py``), with the same result."""
+    if images.device.type == "cuda":
+        cuda_ransac.check_config(config.ransac, config.frontend.max_keypoints)
     with span("pose.features"):
         kp = detect_and_describe_batch(images, config.frontend)
     if images.device.type == "cuda":

@@ -70,6 +70,7 @@ from torch.func import vmap
 
 from stereo_reconstruction_tpu_torch.config import PipelineConfig
 from stereo_reconstruction_tpu_torch.data.records import StereoPair, pad_to
+from stereo_reconstruction_tpu_torch.ops import cuda_ransac
 from stereo_reconstruction_tpu_torch.ops import metrics as metrics_mod
 from stereo_reconstruction_tpu_torch.ops.features import Keypoints, detect_and_describe_batch
 from stereo_reconstruction_tpu_torch.ops.warp import host_inverse, warp_perspective
@@ -128,6 +129,8 @@ def _pose_dispatch(left, right, K_left, K_right, uniforms, config) -> PoseEstima
     """One detector batch of 2B images, then ``pipeline.pose_from_keypoints``
     under ``torch.func.vmap``: queued with no host sync."""
     B = left.shape[0]
+    if left.device.type == "cuda":
+        cuda_ransac.check_config(config.ransac, config.frontend.max_keypoints)
     kp = detect_and_describe_batch(torch.cat([left, right]), config.frontend)
     kp_l = Keypoints(*(x[:B] for x in kp))
     kp_r = Keypoints(*(x[B:] for x in kp))

@@ -40,6 +40,15 @@ def pose_matrix(R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
 
 
+def gram(chi: torch.Tensor) -> torch.Tensor:
+    """chi^T chi, summed in the order the matrix product picks. With 8
+    points its two smallest eigenvalues lie below float32's resolution of
+    its entries, so one ulp of this sum can move the solve's eigenvector by
+    1e-2: the RANSAC kernel (``csrc/ransac.cuh``) sums over the points in
+    order, and its tests put that order here."""
+    return chi.mT @ chi
+
+
 def eight_point(
     matches_left: torch.Tensor,    # (..., 3, N) homogeneous pixel coords
     matches_right: torch.Tensor,   # (..., 3, N)
@@ -55,7 +64,7 @@ def eight_point(
     # eigenvector of chi^T chi; Eigen's column-major reshaped(3, 3) makes
     # E[r, c] = e[c*3 + r]
     chi = geo.kron_vec(xl.mT, xr.mT)                      # (..., N, 9)
-    e_vec = small_linalg.smallest_eigvec(chi.mT @ chi)    # (..., 9)
+    e_vec = small_linalg.smallest_eigvec(gram(chi))       # (..., 9)
     E0 = e_vec.reshape(*e_vec.shape[:-1], 3, 3).mT
 
     # essential-space projection (eight_point.cpp:40-51): det(U) = det(V)

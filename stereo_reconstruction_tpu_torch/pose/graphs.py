@@ -1,25 +1,28 @@
 """The card's pose stage after SIFT, replayed from CUDA graphs.
 
-After SIFT the pose stage is some 60k small kernels a pair, each launched
+After SIFT the pose stage is some 25k small kernels a pair, each launched
 from Python: the card waits on the host most of the time, so a pair's
 time follows the host's speed. ``PoseGraphs`` records those launches
-once as four CUDA graphs and then replays them, one launch each:
+once as three CUDA graphs and then replays them, one launch each, with
+the RANSAC kernel launched between the first two:
 
 * ``match``: ``match_descriptors`` and ``valid_first`` (span ``pose.match``);
-* ``ransac``: ``ransac_eight_point`` (span ``pose.ransac``);
+* RANSAC: the kernel (``ops/cuda_ransac.py``, two launches, not a graph;
+  span ``pose.ransac``), from ``match``'s outputs and the draws into the
+  buffers that ``refine`` reads;
 * ``refine``: ``refine_pose``, the filter and the first BA round
   (span ``pose.ba``);
 * ``round``: ``ba_round``, one further BA round of ``settle_pose``.
 
 The graphs run the eager path's kernels on the same inputs, so their
 outputs equal it bit for bit. Each reads fixed input buffers and writes
-fixed outputs: a call copies its inputs in and its outputs out, and the
-first three chain through each other's outputs. One set is captured per
-(device, configuration, keypoint and image shapes) and kept, with its
-memory pool, for the life of the process (``pose_graphs``); capture runs
-each stage once eagerly first, so a first call costs about two eager
-calls. The graph spans are given the device, so that a traced request
-records their device time.
+fixed outputs: a call copies its inputs in and its outputs out, and
+``match``, the kernel and ``refine`` chain through each other's outputs.
+One set is captured per (device, configuration, keypoint and image
+shapes) and kept, with its memory pool, for the life of the process
+(``pose_graphs``); capture runs each stage once eagerly first, so a first
+call costs about two eager calls. The spans are given the device, so
+that a traced request records their device time.
 """
 
 from __future__ import annotations
@@ -29,10 +32,12 @@ from typing import Callable, Dict, Sequence
 import torch
 
 from stereo_reconstruction_tpu_torch.config import PipelineConfig
+from stereo_reconstruction_tpu_torch.kernels.build import load_library
+from stereo_reconstruction_tpu_torch.ops import cuda_ransac
 from stereo_reconstruction_tpu_torch.ops.features import Keypoints
 from stereo_reconstruction_tpu_torch.ops.matching import match_descriptors, valid_first
 from stereo_reconstruction_tpu_torch.pose.pipeline import PoseEstimate, ba_round, refine_pose
-from stereo_reconstruction_tpu_torch.pose.ransac import RansacResult, ransac_eight_point
+from stereo_reconstruction_tpu_torch.pose.ransac import RansacResult
 from stereo_reconstruction_tpu_torch.utils.profiling import span
 
 
@@ -76,17 +81,25 @@ class PoseGraphs:
                                                  Keypoints(*(x[1] for x in kp)),
                                                  config.frontend))
 
-        def ransac(ml, mr, n_valid):
-            return tuple(ransac_eight_point(ml, mr, self.K_left, self.K_right, config.ransac,
-                                            n_valid, self.uniforms))
-
         def refine(ml, mr, n_valid, *rr):
             return tuple(refine_pose(ml, mr, self.K_left, self.K_right, RansacResult(*rr),
                                      n_valid, config))
 
         self.match = _Graph(match, list(self.kp), pool)
-        self.ransac = _Graph(ransac, self.match.outputs, pool)
-        self.refine = _Graph(refine, [*self.match.outputs, *self.ransac.outputs], pool)
+        ml, mr, n_valid = self.match.outputs
+        n = ml.shape[-1]
+        # the kernel's batch of one: views of the match outputs, intrinsics
+        # and draws, its results written into fixed buffers
+        self.ransac_in = (ml[None], mr[None], self.K_left[None], self.K_right[None],
+                          n_valid.reshape(1), self.uniforms[None])
+        self.ransac_config = config.ransac
+        self.rr = cuda_ransac.result_buffers((), cuda_ransac.support_of(config.ransac, n),
+                                             self.device)
+        self.ransac_out = [x[None] for x in self.rr]
+        self.ransac_scratch = cuda_ransac.scratch_buffers(load_library(), 1, config.ransac, n,
+                                                          self.device)
+        self._ransac()
+        self.refine = _Graph(refine, [ml, mr, n_valid, *self.rr], pool)
         est = PoseEstimate(*self.refine.outputs)
         self.round_in = [x.clone() for x in (est.keypoints_left, est.keypoints_right,
                                              est.pose, est.points, est.weights)]
@@ -108,10 +121,14 @@ class PoseGraphs:
         with span("pose.match", self.device):
             self.match.replay()
         with span("pose.ransac", self.device):
-            self.ransac.replay()
+            self._ransac()
         with span("pose.ba", self.device):
             est = self.refine.replay()
         return PoseEstimate(*(x.clone() for x in est))
+
+    def _ransac(self):
+        cuda_ransac.ransac(*self.ransac_in, self.ransac_config, self.ransac_out,
+                           self.ransac_scratch)
 
     def step(self, kp_left, kp_right, K_left, K_right, pose, points, weights):
         """``ba_round`` from the replayed graph, for ``settle_pose``'s

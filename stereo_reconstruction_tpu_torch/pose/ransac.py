@@ -17,6 +17,12 @@ samples as the JAX ``draw`` does. Without ``uniforms`` it draws ``u`` on
 the CPU from ``generator`` (``draw_uniforms``) and copies it to the
 matches' device, so a CPU run and a CUDA run with the same seed try the
 same hypotheses.
+
+On the card ``ransac_eight_point`` is the hand-written kernel
+(``csrc/ransac.cuh``, launched by ``ops/cuda_ransac.py``): two launches in
+place of the ~45,000 small ops of ``ransac_plain``, its plain twin, which
+CPU matches take. Nothing falls back: a CUDA input the kernel does not take
+raises.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ import torch
 
 from stereo_reconstruction_tpu_torch.config import RansacConfig
 from stereo_reconstruction_tpu_torch.ops import geometry as geo
-from stereo_reconstruction_tpu_torch.pose.eight_point import eight_point
+from stereo_reconstruction_tpu_torch.ops.cuda_ransac import ransac_eight_point_op
+from stereo_reconstruction_tpu_torch.pose.eight_point import EightPointResult, eight_point
 
 
 class RansacResult(NamedTuple):
@@ -71,28 +78,25 @@ def _sampson_sq(F, xl, xr):
     return num / torch.clamp_min(den, 1e-12)
 
 
-def ransac_eight_point(
-    matches_left: torch.Tensor,     # (3, N) homogeneous pixels
-    matches_right: torch.Tensor,    # (3, N)
-    K_left: torch.Tensor,
-    K_right: torch.Tensor,
-    config: RansacConfig = RansacConfig(),
-    num_matches_valid=None,         # int or 0-d tensor (None -> all N)
-    uniforms: Optional[torch.Tensor] = None,    # (num_hypotheses, N)
-    generator: Optional[torch.Generator] = None,
-) -> RansacResult:
-    device = matches_left.device
-    n = matches_left.shape[-1]
-    n_valid = torch.as_tensor(n if num_matches_valid is None else num_matches_valid,
-                              device=device)
-    s = config.sample_size
-    if uniforms is None:
-        uniforms = draw_uniforms(config, n, generator)
-    u = torch.as_tensor(uniforms, dtype=torch.float32).to(device)
+class Hypotheses(NamedTuple):
+    """The K hypotheses of ``ransac_eight_point`` before the winner."""
+    samples: torch.Tensor         # (K, s) match indices
+    results: EightPointResult     # each field with a leading K
+    mean_error: torch.Tensor      # (K,) mean px error over the sample
+    all_below: torch.Tensor       # (K,) bool: every sample error < threshold
+    inliers: torch.Tensor         # (K,) Sampson inliers over the valid matches, -1 invalid
+    fits: torch.Tensor            # (K,) ``match_fit`` of each hypothesis's F
 
+
+def score_hypotheses(matches_left, matches_right, K_left, K_right, config: RansacConfig,
+                     n_valid: torch.Tensor, u: torch.Tensor) -> Hypotheses:
+    """The plain twin of the kernel's first launch: each hypothesis's sample,
+    eight-point solve and scores."""
+    n = matches_left.shape[-1]
+    s = config.sample_size
     # num_hypotheses samples of s distinct indices in [0, n_valid): the
     # ranks of the uniforms restricted to the valid prefix
-    in_range = torch.arange(n, device=device) < n_valid
+    in_range = torch.arange(n, device=matches_left.device) < n_valid
     u = torch.where(in_range, u, torch.inf)
     samples = torch.argsort(u, dim=-1, stable=True)[:, :s]     # (K, s)
 
@@ -106,20 +110,65 @@ def ransac_eight_point(
     all_below = torch.all(sample_err < config.error_threshold, dim=-1)
 
     # score 2: full-set inliers by Sampson distance on F
-    def full_inliers(E):
-        F = geo.fundamental_from_essential(E, K_left, K_right)
-        d2 = _sampson_sq(F, matches_left, matches_right)
-        return torch.sum((d2 < config.error_threshold ** 2) & in_range, dim=-1)
+    inliers = torch.where(results.valid, _full_inliers(results.essential, matches_left,
+                                                       matches_right, K_left, K_right,
+                                                       in_range, config), -1)
+    fits = match_fit(geo.fundamental_from_essential(results.essential, K_left, K_right),
+                     matches_left, matches_right, n_valid, config.error_threshold)
+    return Hypotheses(samples, results, mean_err, all_below, inliers, fits)
 
-    inliers = torch.where(results.valid, full_inliers(results.essential), -1)
+
+def _full_inliers(E, matches_left, matches_right, K_left, K_right, in_range,
+                  config: RansacConfig):
+    F = geo.fundamental_from_essential(E, K_left, K_right)
+    d2 = _sampson_sq(F, matches_left, matches_right)
+    return torch.sum((d2 < config.error_threshold ** 2) & in_range, dim=-1)
+
+
+def ransac_eight_point(
+    matches_left: torch.Tensor,     # (3, N) homogeneous pixels
+    matches_right: torch.Tensor,    # (3, N)
+    K_left: torch.Tensor,
+    K_right: torch.Tensor,
+    config: RansacConfig = RansacConfig(),
+    num_matches_valid=None,         # int or 0-d tensor (None -> all N)
+    uniforms: Optional[torch.Tensor] = None,    # (num_hypotheses, N)
+    generator: Optional[torch.Generator] = None,
+) -> RansacResult:
+    """CUDA matches: the kernel (``ops/cuda_ransac.py``, two launches; a
+    batch's under ``torch.func.vmap`` too); CPU matches: ``ransac_plain``."""
+    device = matches_left.device
+    n = matches_left.shape[-1]
+    n_valid = torch.as_tensor(n if num_matches_valid is None else num_matches_valid,
+                              device=device)
+    if uniforms is None:
+        uniforms = draw_uniforms(config, n, generator)
+    u = torch.as_tensor(uniforms, dtype=torch.float32).to(device)
+    if device.type == "cuda":
+        return RansacResult(*ransac_eight_point_op(
+            matches_left, matches_right, K_left, K_right, n_valid.to(torch.int64), u,
+            config.num_hypotheses, config.sample_size, float(config.error_threshold),
+            config.refine_rounds, config.refine_support))
+    return ransac_plain(matches_left, matches_right, K_left, K_right, config, n_valid, u)
+
+
+def ransac_plain(matches_left, matches_right, K_left, K_right, config: RansacConfig,
+                 n_valid: torch.Tensor, u: torch.Tensor) -> RansacResult:
+    """The kernel's plain twin, on the matches' device: ``score_hypotheses``,
+    the winner and the best fitting hypothesis, then the refits."""
+    device = matches_left.device
+    n = matches_left.shape[-1]
+    s = config.sample_size
+    in_range = torch.arange(n, device=device) < n_valid
+    hyp = score_hypotheses(matches_left, matches_right, K_left, K_right, config, n_valid, u)
+    samples, results, mean_err, inliers, fits = (hyp.samples, hyp.results, hyp.mean_error,
+                                                 hyp.inliers, hyp.fits)
     score = inliers.to(torch.float32) - 1e-6 * mean_err
     best = torch.argmax(score).reshape(1)
     # the best fitting of the hypotheses with the most inliers, for
     # ``pose.pipeline.refine_pose``'s second BA (float32 rounds the -1e-6 *
     # mean_err away at a few hundred inliers, so ``best`` is the first of
     # them, however it fits)
-    fits = match_fit(geo.fundamental_from_essential(results.essential, K_left, K_right),
-                     matches_left, matches_right, n_valid, config.error_threshold)
     fit = torch.argmin(torch.where(inliers == torch.amax(inliers), fits, torch.inf)).reshape(1)
 
     def pick(x):
@@ -139,7 +188,7 @@ def ransac_eight_point(
         sample=init_sample,
         inliers=pick(inliers),
         mean_error=pick(mean_err),
-        success=pick(all_below) & pick(results.valid),
+        success=pick(hyp.all_below) & pick(results.valid),
     )
     # local refinement (eight_point.cpp:294-359): re-solve on the current
     # model's tightest `support` matches; keep a refit that is
@@ -150,7 +199,9 @@ def ransac_eight_point(
         top = torch.argsort(torch.where(in_range, d2, torch.inf), stable=True)[:support]
         ml, mr = matches_left[:, top], matches_right[:, top]
         refit = eight_point(ml, mr, K_left, K_right)
-        refit_inl = torch.where(refit.valid, full_inliers(refit.essential), -1)
+        refit_inl = torch.where(refit.valid, _full_inliers(refit.essential, matches_left,
+                                                           matches_right, K_left, K_right,
+                                                           in_range, config), -1)
         use = refit_inl >= cur["inliers"]
         errs = geo.pixel_error(geo.project(K_right, refit.points_right), mr)
         new = dict(

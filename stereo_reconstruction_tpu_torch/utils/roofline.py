@@ -87,6 +87,46 @@ def warp_bound(h: int, w: int, channels: int, src_bytes: int, h_out: int, w_out:
                  images * h_out * w_out * per_pixel)
 
 
+def eight_point_ops(m: int) -> int:
+    """Float32 operations of one eight-point solve on m points, as the RANSAC
+    kernel and its twin do it: normalising both sides (14 a point), chi and
+    chi^T chi (9 products a point, then 45 entries of a product and an add a
+    point), 6 sweeps of the 9x9 Jacobi's 36 rotations (14 for c and s; rows
+    and columns p, q of A and columns p, q of V, 3 an entry), 8 sweeps of the
+    3x3's 3 rotations, ~150 for the SVD's vectors and the four candidates,
+    and per candidate and point ~60 to set up the secular equation, 3 for
+    each of its 33 bisection and Newton steps (the Newton steps' second sum
+    counted as 3 more) and ~40 for the depth, cheirality and pixel error."""
+    jacobi9 = 6 * 36 * (14 + 3 * (4 * 9 + 2 * 9))
+    jacobi3 = 8 * 3 * (14 + 3 * (4 * 3 + 2 * 3))
+    return (14 + 9 + 2 * 45) * m + jacobi9 + jacobi3 + 150 + 4 * m * (60 + 3 * 36 + 40)
+
+
+def ransac_bytes_ops(n: int, hypotheses: int = 256, sample: int = 8, support: int = 16,
+                     rounds: int = 2):
+    """(bytes, operations) of the RANSAC kernel on one pair of n matches:
+    the uniforms (hypotheses x n float32), both sides' (3, n) matches, the
+    intrinsics and the valid count read once, the ``RansacResult`` (230
+    bytes and 8 a support index) written once; per hypothesis an eight-point
+    solve on ``sample`` points and F's Sampson distance on every match (~40
+    operations: F x and F^T y, the product, the denominator, the compare
+    and the capped sum); per refit round two passes of Sampson distances and
+    a solve on ``support`` points."""
+    sampson = 40 * n
+    ops = (hypotheses * (eight_point_ops(sample) + sampson)
+           + rounds * (2 * sampson + eight_point_ops(support)))
+    nbytes = 4 * hypotheses * n + 24 * n + 72 + 8 + 230 + 8 * support
+    return nbytes, ops
+
+
+def ransac_bound(n: int, hypotheses: int = 256, sample: int = 8, support: int = 16,
+                 rounds: int = 2):
+    """``bound`` of the RANSAC kernel (``ransac_bytes_ops``). Neither binds
+    in practice: one warp's chain of dependent divisions and square roots
+    does (216 Jacobi rotations a solve, three solves in series)."""
+    return bound(*ransac_bytes_ops(n, hypotheses, sample, support, rounds))
+
+
 def matcher_roofline(H: int, W: int, D: int, block_size: int = 17,
                      min_disparity: int = 0, WL: int | None = None) -> Dict:
     """The bounds of one pair through the exact matcher on the card, K1

@@ -175,3 +175,16 @@ def test_warp_bound_counts_bytes_and_operations():
                                                                    4 * 5 * (20 + 15 * 3))
     assert roofline.warp_bound(2, 3, 1, 4, 4, 5, images=3, nearest=True) == roofline.bound(
         3 * (2 * 3 * 4 + 4 * 4 * 5), 3 * 4 * 5 * 17)
+
+
+def test_ransac_bound_counts_bytes_and_operations():
+    """The RANSAC kernel's bound at the posed request's shapes (N = 500, 256
+    hypotheses of 8, 2 refits on 16): operations bind, well under a
+    microsecond."""
+    nbytes, ops = roofline.ransac_bytes_ops(500)
+    assert nbytes == 4 * 256 * 500 + 24 * 500 + 72 + 8 + 230 + 8 * 16
+    assert ops == (256 * (roofline.eight_point_ops(8) + 40 * 500)
+                   + 2 * (2 * 40 * 500 + roofline.eight_point_ops(16)))
+    t, what = roofline.ransac_bound(500)
+    assert what == "operations" and t == pytest.approx(ops / 67e12 * 1e3) and t < 1e-3
+    assert roofline.eight_point_ops(16) > roofline.eight_point_ops(8) > 6 * 36 * 176

@@ -38,7 +38,14 @@ on the card) bit for bit on random maps, -0.0 and batches of two launches
 included, and takes what the twin takes (other dtypes, views, 2 and 4
 channels); the rectifying warps and the back-warp make no host
 synchronisation, equal the CPU path bit for bit, and launch it twice a
-fixed-F ``run_pair`` (never in a perceptual ``compute_disparity``).
+fixed-F ``run_pair`` (never in a perceptual ``compute_disparity``). The
+RANSAC kernel on the card equals its twin (``ransac_plain`` with its
+rounding pinned to the kernel's, ``ransac_twin.py``, on the CPU) to that
+file's limits, past the matches whose refit keys shared memory holds too,
+launches twice a posed ``run_pair`` (never a fixed-F one) and twice a
+``run_batch`` of four posed pairs, each of whose poses is within 1e-3 of
+its ``run_pair``, and from it the two benchmark fixtures pose within 0.5 /
+2 degrees.
 """
 
 import os
@@ -53,7 +60,7 @@ from stereo_reconstruction_tpu_torch.data.records import StereoPair, pad_to
 from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
 from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
 from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
-from stereo_reconstruction_tpu_torch.ops import cuda_warp
+from stereo_reconstruction_tpu_torch.ops import cuda_ransac, cuda_warp
 from stereo_reconstruction_tpu_torch.ops import cost_volume as tcv
 from stereo_reconstruction_tpu_torch.ops.block_search import block_search_left, block_search_right
 from stereo_reconstruction_tpu_torch.ops.linear_search import linear_search
@@ -86,7 +93,15 @@ from chip_smoke import (  # noqa: E402
     perceptual_pair,
     perceptual_volume,
     pose_angles,
+    request_matches,
 )
+from test_torch_ransac_host import (  # noqa: E402
+    K as RANSAC_K,
+    compare,
+    scene_case,
+    truth_angles,
+)
+from ransac_twin import card_kernel  # noqa: E402
 from torch_helpers import (  # noqa: E402
     STRIP_WIDTHS,
     WARP_IMAGE_CASES,
@@ -958,3 +973,159 @@ def test_warp_launches_twice_a_fixed_F_run_pair(cuda, tmp_path):
     run_batch(_batch_pairs(), BATCH_CONFIG, uniforms=batch_uniforms(BATCH_CONFIG, 3),
               device=cuda)
     assert cuda_warp.LAUNCHES == before + 4
+
+
+@pytest.mark.parametrize("case", ["posed_request_matches", "far_winner_request", "scene",
+                                  "duplicates", "no_valid", "past_shared_keys"])
+def test_ransac_kernel_equals_twin_on_card(cuda, case):
+    from stereo_reconstruction_tpu_torch.config import RansacConfig
+
+    config = RansacConfig()
+    if case == "scene":
+        ml, mr, nv = scene_case(7, 500, 333)
+    elif case == "duplicates":
+        ml, mr, nv = scene_case(8, 300, 240, duplicates=3)
+    elif case == "no_valid":
+        ml, mr, nv = scene_case(17, 120, 100, outliers=0.0, behind=0.5)
+        config = RansacConfig(num_hypotheses=64)
+    elif case == "past_shared_keys":
+        from stereo_reconstruction_tpu_torch.kernels.build import load_library
+
+        ml, mr, nv = scene_case(9, load_library().stpu_ransac_shared_keys() + 100, 300)
+        config = RansacConfig(num_hypotheses=64)
+    else:
+        ml, mr, nv = request_matches(case, 500)
+    compare(card_kernel, ml, mr, nv, config, device=cuda)
+
+
+def test_posed_run_pair_launches_the_ransac_kernel_twice(cuda):
+    pair, _, _ = _posed_pair()
+    cfg = PipelineConfig(matcher=MatcherConfig(block_size=7, max_disparity=80))
+    run_pair(pair, cfg, device=cuda)            # captures the pose stage's graphs
+    before = cuda_ransac.LAUNCHES
+    res = run_pair(pair, cfg, device=cuda)
+    assert cuda_ransac.LAUNCHES == before + 2
+    assert res.metrics["pose_ok"] == 1.0
+    _, _, _, _, _, F, _ = nonplanar_scene(np.random.default_rng(4), 240, 320)
+    run_pair(pair, cfg, fixed_F=F, device=cuda)
+    assert cuda_ransac.LAUNCHES == before + 2
+
+
+def test_run_batch_of_four_posed_pairs_launches_the_ransac_kernel_twice(cuda):
+    """At 240x384 the batch needs no padding, so each pair's pose stage sees
+    what its ``run_pair`` sees."""
+    pairs = []
+    for seed in range(4):
+        left, right, K, _, _, _, _ = nonplanar_scene(np.random.default_rng(seed), 240, 384)
+        pairs.append(StereoPair(left, right, K.astype(np.float32), K.astype(np.float32),
+                                name=f"posed{seed}"))
+    u = batch_uniforms(BATCH_CONFIG, 4)
+    before = cuda_ransac.LAUNCHES
+    res = run_batch(pairs, BATCH_CONFIG, uniforms=u, device=cuda)
+    assert cuda_ransac.LAUNCHES == before + 2
+    for i, pair in enumerate(pairs):
+        one = run_pair(pair, BATCH_CONFIG, device=cuda, uniforms=u[i])
+        # test_pose_stage_on_card_matches_cpu's limit
+        np.testing.assert_allclose(res.pose.pose[i, :3, :3].cpu().numpy(),
+                                   one.pose.pose[:3, :3].cpu().numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["posed_request_matches", "far_winner_request"])
+def test_ransac_kernel_poses_the_fixtures_on_card(cuda, name):
+    """The benchmark's two hard requests (seed 3100000041 request 0, seed
+    3000003002 request 205): RANSAC on the card, then BA, within the
+    configuration's 0.5 / 2 degrees for each of three draws."""
+    from stereo_reconstruction_tpu_torch.pose.pipeline import estimate_pose_from_matches, \
+        settle_pose
+    from stereo_reconstruction_tpu_torch.pose.ransac import draw_uniforms
+
+    cfg = PipelineConfig()
+    ml, mr, nv = request_matches(name, 500)
+    Kt = torch.from_numpy(RANSAC_K).to(cuda)
+    for seed in range(3):
+        u = draw_uniforms(cfg.ransac, ml.shape[1], torch.Generator().manual_seed(seed))
+        est = settle_pose(estimate_pose_from_matches(ml.to(cuda), mr.to(cuda), Kt, Kt, cfg, nv,
+                                                     u.to(cuda)), Kt, Kt, cfg)
+        rot, trans = truth_angles(est.pose)
+        assert bool(est.valid) and rot <= 0.5 and trans <= 2.0, (seed, rot, trans)
+
+
+def test_posed_run_pair_past_shared_keys(cuda):
+    """More matches than shared memory holds the refits' keys for
+    (max_keypoints past ``stpu_ransac_shared_keys``): the kernel keeps them
+    in its scratch, and the card poses the pair as the CPU does, to
+    ``test_pose_stage_on_card_matches_cpu``'s limits."""
+    import dataclasses
+
+    from stereo_reconstruction_tpu_torch.kernels.build import load_library
+
+    pair, R, T = _posed_pair()
+    cfg = PipelineConfig()
+    n = load_library().stpu_ransac_shared_keys() + 100
+    cfg = cfg.replace(frontend=dataclasses.replace(cfg.frontend, max_keypoints=n))
+    estimate_pose(pair, cfg, device=cuda)      # captures the pose stage's graphs
+    before = cuda_ransac.LAUNCHES
+    got = estimate_pose(pair, cfg, device=cuda)
+    assert cuda_ransac.LAUNCHES == before + 2
+    want = estimate_pose(pair, cfg, device="cpu")
+    assert bool(got.valid) and bool(want.valid)
+    np.testing.assert_allclose(got.pose.cpu().numpy()[:3, :3], want.pose.numpy()[:3, :3],
+                               atol=1e-3)
+    rot, trans = pose_angles(got.pose.cpu().numpy(), R, T)
+    assert rot < 1.0 and trans < 5.0
+
+
+@pytest.mark.parametrize("field,value", [("sample_size", 33), ("refine_support", 40)])
+def test_posed_run_pair_refuses_a_ransac_config_before_sift(cuda, monkeypatch, field, value):
+    """A RANSAC configuration the card's kernel does not take raises
+    ``ValueError`` before the pose stage's SIFT runs."""
+    import dataclasses
+
+    from stereo_reconstruction_tpu_torch import pipeline as pipeline_mod
+
+    def no_sift(*args, **kwargs):
+        raise AssertionError("SIFT ran")
+
+    monkeypatch.setattr(pipeline_mod, "detect_and_describe_batch", no_sift)
+    pair, _, _ = _posed_pair()
+    cfg = PipelineConfig()
+    cfg = cfg.replace(ransac=dataclasses.replace(cfg.ransac, **{field: value}))
+    with pytest.raises(ValueError, match="RANSAC kernel"):
+        run_pair(pair, cfg, device=cuda)
+
+
+def test_distributed_ba_batch_equals_each_pair_on_card(cuda):
+    """On the card each problem of ``distributed_bundle_adjust_batch`` gives
+    the bits of ``distributed_bundle_adjust`` on it alone: the pose's
+    translation and the points share a scale no residual sees, so a batch
+    that rounded apart drifted along it (up to 2.4e-2 in T on the smoke's
+    scenes)."""
+    from stereo_reconstruction_tpu_torch.ops import geometry as geo
+    from stereo_reconstruction_tpu_torch.parallel import (distributed_bundle_adjust,
+                                                          distributed_bundle_adjust_batch,
+                                                          make_mesh)
+
+    rng = np.random.default_rng(7)
+    K = torch.tensor([[500.0, 0, 160], [0, 500.0, 120], [0, 0, 1]], device=cuda)
+    n = 64
+    depth = torch.from_numpy(rng.uniform(4, 9, n).astype(np.float32)).to(cuda)
+    xy = torch.from_numpy(rng.uniform(-0.25, 0.25, (2, n)).astype(np.float32)).to(cuda)
+    pts = torch.cat([xy, torch.ones(1, n, device=cuda)]) * depth
+    R = geo.angle_axis_to_rotation(torch.tensor([0.03, -0.05, 0.02], device=cuda))
+    T = torch.tensor([-0.6, 0.05, 0.2], device=cuda)
+    noise = torch.from_numpy(rng.normal(0, 0.5, (2, 2, n)).astype(np.float32)).to(cuda)
+    kl, kr = geo.project(K, pts), geo.project(K, geo.transform(R, T, pts))
+    kl = torch.cat([kl[:2] + noise[0], kl[2:]])
+    kr = torch.cat([kr[:2] + noise[1], kr[2:]])
+    problems = [(geo.angle_axis_to_rotation(geo.rotation_to_angle_axis(R) + 0.03 + 0.01 * i),
+                 T + 0.05) for i in range(3)]
+    mesh = make_mesh(data=2, tile=4, devices=[cuda] * 8)
+    B = len(problems)
+    poses, _, _, cf, X = distributed_bundle_adjust_batch(
+        torch.stack([kl] * B), torch.stack([kr] * B), K, K,
+        torch.stack([p[0] for p in problems]), torch.stack([p[1] for p in problems]),
+        torch.stack([pts] * B), mesh)
+    for i, (Ri, Ti) in enumerate(problems):
+        one = distributed_bundle_adjust(kl, kr, K, K, Ri, Ti, pts, mesh)
+        assert torch.equal(poses[i], one.pose) and torch.equal(X[i], one.points)
+        assert torch.equal(cf[i], one.final_cost)
