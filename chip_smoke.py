@@ -305,15 +305,14 @@ def ransac_times(torch, ml, mr, K, nv, u, cfg):
     stage replayed it before the kernel) of RANSAC on one pair's card
     tensors: (3, N) matches, (3, 3) intrinsics, a 0-d valid count and
     (num_hypotheses, N) draws; each queued (``_median_queued_ms``). Its own
-    calls are counted in ``cuda_ransac.LAUNCHES``."""
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
+    calls are counted in ``LAUNCHES["ransac"]``."""
     from stereo_reconstruction_tpu_torch.ops import cuda_ransac
     from stereo_reconstruction_tpu_torch.pose.ransac import ransac_plain
 
     dev, n = ml.device, ml.shape[-1]
     args = (ml[None], mr[None], K[None], K[None], nv.reshape(1), u[None])
     out = cuda_ransac.result_buffers((1,), cuda_ransac.support_of(cfg, n), dev)
-    scratch = cuda_ransac.scratch_buffers(load_library(), 1, cfg, n, dev)
+    scratch = cuda_ransac.scratch_buffers(1, cfg, n, dev)
     kernel_ms = _median_queued_ms(lambda: cuda_ransac.ransac(*args, cfg, out, scratch), torch)
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
@@ -1791,11 +1790,11 @@ def main() -> int:
     from stereo_reconstruction_tpu_torch.io.mesh_io import read_off
     from stereo_reconstruction_tpu_torch.io.pfm import read_pfm
     from stereo_reconstruction_tpu_torch.kernels import build
+    from stereo_reconstruction_tpu_torch.kernels.launch import LAUNCHES
     from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
     from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
     from stereo_reconstruction_tpu_torch.ops import cuda_ransac as cransac
     from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
-    from stereo_reconstruction_tpu_torch.ops import cuda_warp as cwarp
     from stereo_reconstruction_tpu_torch.ops import smoothing
     from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
     from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
@@ -1811,16 +1810,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     def reset_counts():
-        ccv.LAUNCHES = crs.LAUNCHES = ccv.VOLUME_LAUNCHES = cbs.LAUNCHES = pscan.LAUNCHES = 0
-        cwarp.LAUNCHES = cransac.LAUNCHES = 0
-
-    def counts():
-        return {"K1": ccv.LAUNCHES, "K1b": crs.LAUNCHES, "K2": ccv.VOLUME_LAUNCHES,
-                "K3": cbs.LAUNCHES, "K4": pscan.LAUNCHES, "warp": cwarp.LAUNCHES,
-                "ransac": cransac.LAUNCHES}
+        LAUNCHES.clear()
 
     def expected(**k):
         return {"K1": 0, "K1b": 0, "K2": 0, "K3": 0, "K4": 0, "warp": 0, "ransac": 0, **k}
+
+    def counts():
+        return {kernel: LAUNCHES[kernel] for kernel in expected()}
 
     # 1. device
     smi = subprocess.run(

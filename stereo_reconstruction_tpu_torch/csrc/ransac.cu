@@ -14,11 +14,6 @@ extern "C" int stpu_ransac_shared_keys() { return stpu::ransac::kSharedKeys; }
 extern "C" int stpu_ransac_hyp_floats() { return stpu::ransac::kHypFloats; }
 extern "C" int stpu_ransac_hyp_ints() { return stpu::ransac::kHypInts; }
 
-// The name of a cudaError_t that stpu_ransac returned.
-extern "C" const char* stpu_ransac_error(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
 // RANSAC of B pairs on `stream`, in two launches; returns the first
 // cudaError_t that is not 0, else 0. `ptrs` holds 21 device pointers in
 // the order of stpu::ransac::Params (inputs ml, mr, Kl, Kr, n_valid, u;

@@ -41,11 +41,6 @@ cudaError_t launch(const float* m0, const int* a0, const float* cz,
 // Python wrapper reads it from here.
 extern "C" int stpu_row_scan_max_width() { return stpu::k1b::kMaxWidth; }
 
-// The name of a cudaError_t that stpu_row_scan returned.
-extern "C" const char* stpu_row_scan_error(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
 // Launches K1b on `stream`; returns the cudaError_t of the launch (0 = ok).
 // All pointers are device pointers to contiguous (H, W) arrays: float32
 // m0, c_zero, diag_up, diag_lf and out, int32 a0, uint8 black; `first`

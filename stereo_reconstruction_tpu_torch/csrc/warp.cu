@@ -24,9 +24,6 @@ void launch(bool nearest, dim3 grid, dim3 block, cudaStream_t stream, const Batc
 // group of that many.
 extern "C" int stpu_warp_max_images() { return stpu::warp::kMaxImages; }
 
-// The name of a cudaError_t that stpu_warp returned.
-extern "C" const char* stpu_warp_error(int err) { return cudaGetErrorString((cudaError_t)err); }
-
 // Warps `n` sources into `dst` on `stream`; returns the first launch's
 // cudaError_t that is not 0, else 0. Host arrays: `srcs` (n device
 // pointers, each a contiguous (h, w, channels) image, uint8 if

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``,
 all of them at once, and the objects are linked into one shared library
 with a plain C interface, which is loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds). The library lands in
+headers, so a build takes seconds) and whose entry points the launchers
+declare (``launch.entry``). The library lands in
 ``build/stpu_torch_kernels/<source-hash>/`` at the root of the checkout
 and is built on first use only. A missing ``nvcc`` or a failed build
 raises: there is no fallback.
@@ -95,49 +96,12 @@ def library_path() -> Path:
 
 def load_library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use, with every entry
-    point's argument and return types declared."""
+    point registered in ``launch`` declared."""
     global _LIB
     if _LIB is None:
+        from stereo_reconstruction_tpu_torch.kernels.launch import declare
+
         lib = ctypes.CDLL(str(library_path()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.stpu_matcher_inputs.argtypes = [p, p, p, p, p, p, p, p,
-                                            i, i, i, i, i, i, i, i, i, p]
-        lib.stpu_matcher_inputs.restype = i
-        lib.stpu_matcher_inputs_max_hbs.argtypes = []
-        lib.stpu_matcher_inputs_max_hbs.restype = i
-        lib.stpu_row_scan_max_width.argtypes = []
-        lib.stpu_row_scan_max_width.restype = i
-        lib.stpu_cost_volume.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
-        lib.stpu_cost_volume.restype = i
-        lib.stpu_block_search.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                          i, i, ctypes.c_float, i, i, p]
-        lib.stpu_block_search.restype = i
-        lib.stpu_row_scan.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
-                                      ctypes.c_float, i, i, p]
-        lib.stpu_row_scan.restype = i
-        lib.stpu_row_scan_error.argtypes = [i]
-        lib.stpu_row_scan_error.restype = ctypes.c_char_p
-        lib.stpu_perceptual_scan.argtypes = [p, p, p, p, i, i, i, i, p]
-        lib.stpu_perceptual_scan.restype = i
-        lib.stpu_perceptual_scan_smem_bytes.argtypes = [i, i]
-        lib.stpu_perceptual_scan_smem_bytes.restype = ctypes.c_longlong
-        lib.stpu_perceptual_scan_scratch_bytes.argtypes = [i, i, i]
-        lib.stpu_perceptual_scan_scratch_bytes.restype = ctypes.c_longlong
-        lib.stpu_perceptual_scan_max_smem.argtypes = []
-        lib.stpu_perceptual_scan_max_smem.restype = ctypes.c_longlong
-        lib.stpu_warp.argtypes = [p, p, p, i, i, i, p, i, i, i, p]
-        lib.stpu_warp.restype = i
-        lib.stpu_warp_max_images.argtypes = []
-        lib.stpu_warp_max_images.restype = i
-        lib.stpu_warp_error.argtypes = [i]
-        lib.stpu_warp_error.restype = ctypes.c_char_p
-        lib.stpu_ransac.argtypes = [p, p, ctypes.c_float, ctypes.c_float, p]
-        lib.stpu_ransac.restype = i
-        for name in ("stpu_ransac_max_points", "stpu_ransac_shared_keys",
-                     "stpu_ransac_hyp_floats", "stpu_ransac_hyp_ints"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-        lib.stpu_ransac_error.argtypes = [i]
-        lib.stpu_ransac_error.restype = ctypes.c_char_p
+        declare(lib)
         _LIB = lib
     return _LIB

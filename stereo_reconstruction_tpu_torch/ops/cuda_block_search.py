@@ -42,9 +42,12 @@ raises ``ValueError`` on every device.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from stereo_reconstruction_tpu_torch.config import MatcherConfig
+from stereo_reconstruction_tpu_torch.kernels.launch import entry, launch, on_card
 from stereo_reconstruction_tpu_torch.ops.cost_volume import (
     black_pixel_mask,
     cost_volume_right_ssd,
@@ -54,8 +57,9 @@ from stereo_reconstruction_tpu_torch.ops.cuda_cost_volume import (
     window_cost_setup,
 )
 
-# kernel launches made by ``block_search_fused`` (the plain twin never counts)
-LAUNCHES = 0
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_block_search = entry("stpu_block_search", [_p] * 7 + [_i] * 8 + [ctypes.c_float, _i, _i, _p],
+                      _i)
 # K3's plane indices are 16-bit, 0xffff marking an empty top-3 slot
 # (``kNoPlane``, csrc/block_search.cuh)
 MAX_PLANES = 0xffff
@@ -134,8 +138,7 @@ def block_search_fused(left, right, config: MatcherConfig = MatcherConfig(),
     """Right-image disparity, (H, W) float32, of left (H, W_l, 3) and right
     (H, W, 3) images by the fused search: the plain twin for CPU tensors,
     K3 for CUDA tensors."""
-    global LAUNCHES
-    if left.device.type == "cpu" and right.device.type == "cpu":
+    if not on_card("K3", left, right):
         return block_search_fused_plain(left, right, config, tile_width, smooth_mode)
     _check(config, smooth_mode)
     left, right, D = cuda_images(left, right, config.min_disparity,
@@ -144,21 +147,16 @@ def block_search_fused(left, right, config: MatcherConfig = MatcherConfig(),
     tw = tile_width_for(w, tile_width)
     if tw < 1:
         raise ValueError(f"K3 needs a tile width >= 1, got {tw}")
-    lib, hbs, wl_pad, layout = window_cost_setup(left, right, config.block_size,
-                                                 config.min_disparity, D, "K3")
+    hbs, wl_pad, layout = window_cost_setup(left, right, config.block_size,
+                                            config.min_disparity, D, "K3")
     f32 = dict(dtype=torch.float32, device=right.device)
     disp = torch.empty((h, w), **f32)
     cost = torch.empty((D, h, w), **f32)
     top = torch.empty((6, h, w), **f32)
     rows = torch.empty((8 * w + -(-w // tw),), **f32)
-    stream = torch.cuda.current_stream(right.device).cuda_stream
-    with torch.cuda.device(right.device):
-        rc = lib.stpu_block_search(
-            left.data_ptr(), right.data_ptr(), disp.data_ptr(), cost.data_ptr(),
-            top.data_ptr(), layout.data_ptr(), rows.data_ptr(), h, w, left.shape[1],
-            wl_pad, hbs, config.min_disparity, D, tw, config.smooth_factor,
-            SMOOTH_SIGN[smooth_mode], config.row_smooth_iters, stream)
-    if rc != 0:
-        raise RuntimeError(f"K3 launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    launch("K3", _block_search, right.device,
+           left.data_ptr(), right.data_ptr(), disp.data_ptr(), cost.data_ptr(),
+           top.data_ptr(), layout.data_ptr(), rows.data_ptr(), h, w, left.shape[1],
+           wl_pad, hbs, config.min_disparity, D, tw, config.smooth_factor,
+           SMOOTH_SIGN[smooth_mode], config.row_smooth_iters)
     return disp

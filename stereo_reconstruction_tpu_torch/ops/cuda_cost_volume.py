@@ -8,10 +8,10 @@ and both are sinks of one window-cost routine (``csrc/window_cost.cuh``):
   (``pallas_matcher_inputs``): the cost of every disparity plane is folded
   on the fly into the five (H, W) planes of the exact smoothing scan
   (``ops/smoothing.py``), so the (D, H, W) volume is never written.
-  Wrapper ``matcher_inputs``, count ``LAUNCHES``.
+  Wrapper ``matcher_inputs``, count ``LAUNCHES["K1"]``.
 * K2 (``csrc/cost_volume.cuh``), mode ``"volume"``
   (``pallas_cost_volume_right_ssd``): the full (D, H, W) volume, +inf =
-  invalid. Wrapper ``cost_volume``, count ``VOLUME_LAUNCHES``; its twin is
+  invalid. Wrapper ``cost_volume``, count ``LAUNCHES["K2"]``; its twin is
   ``ops/cost_volume.py::cost_volume_right_ssd``.
 
 Each call is one launch of its count: the left image's layout pass and the
@@ -40,15 +40,18 @@ raises ``ValueError`` on every device.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from stereo_reconstruction_tpu_torch.kernels.launch import entry, launch, on_card
 from stereo_reconstruction_tpu_torch.ops.cost_volume import cost_volume_right_ssd
 from stereo_reconstruction_tpu_torch.ops.smoothing import volume_reductions
 
-# kernel launches made by ``matcher_inputs`` (K1) and ``cost_volume`` (K2);
-# the plain twins never count
-LAUNCHES = 0
-VOLUME_LAUNCHES = 0
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_matcher_inputs = entry("stpu_matcher_inputs", [_p] * 8 + [_i] * 9 + [_p], _i)
+_cost_volume = entry("stpu_cost_volume", [_p] * 4 + [_i] * 9 + [_p], _i)
+_max_hbs = entry("stpu_matcher_inputs_max_hbs", [], _i)
 
 
 def matcher_inputs_plain(left, right, block_size: int = 17,
@@ -77,14 +80,12 @@ def matcher_inputs(left, right, block_size: int = 17,
     (H, W, 3) images: the plain twin for CPU tensors, K1 for CUDA tensors.
     uint8 images are cast to float32. ``row_offset`` / ``total_height``:
     global rows (module docstring)."""
-    global LAUNCHES
-    if left.device.type == "cpu" and right.device.type == "cpu":
+    if not on_card("K1", left, right):
         return matcher_inputs_plain(left, right, block_size, min_disparity,
                                     max_disparity, row_offset, total_height)
     row0, total = _global_rows(right, row_offset, total_height)
     left, right, D = cuda_images(left, right, min_disparity, max_disparity, "K1")
-    lib, hbs, wl_pad, scratch = window_cost_setup(left, right, block_size,
-                                                  min_disparity, D, "K1")
+    hbs, wl_pad, scratch = window_cost_setup(left, right, block_size, min_disparity, D, "K1")
     h, w = right.shape[:2]
     f32 = dict(dtype=torch.float32, device=right.device)
     m0 = torch.empty((h, w), **f32)
@@ -92,15 +93,10 @@ def matcher_inputs(left, right, block_size: int = 17,
     cz = torch.empty((h, w), **f32)
     du = torch.empty((h, w), **f32)
     dl = torch.empty((h, w), **f32)
-    stream = torch.cuda.current_stream(right.device).cuda_stream
-    with torch.cuda.device(right.device):
-        rc = lib.stpu_matcher_inputs(
-            left.data_ptr(), right.data_ptr(), m0.data_ptr(), a0.data_ptr(),
-            cz.data_ptr(), du.data_ptr(), dl.data_ptr(), scratch.data_ptr(),
-            h, w, left.shape[1], wl_pad, hbs, min_disparity, D, row0, total, stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    launch("K1", _matcher_inputs, right.device,
+           left.data_ptr(), right.data_ptr(), m0.data_ptr(), a0.data_ptr(),
+           cz.data_ptr(), du.data_ptr(), dl.data_ptr(), scratch.data_ptr(),
+           h, w, left.shape[1], wl_pad, hbs, min_disparity, D, row0, total)
     return m0, a0, cz, du, dl
 
 
@@ -112,24 +108,17 @@ def cost_volume(left, right, block_size: int = 17, min_disparity: int = 0,
     tensors (block sizes up to 17, as K1 and the TPU kernel; ``ValueError``
     beyond; no caller in the port passes more). ``row_offset`` /
     ``total_height``: global rows (module docstring)."""
-    global VOLUME_LAUNCHES
-    if left.device.type == "cpu" and right.device.type == "cpu":
+    if not on_card("K2", left, right):
         return cost_volume_right_ssd(left, right, block_size, min_disparity,
                                      max_disparity, row_offset, total_height)
     row0, total = _global_rows(right, row_offset, total_height)
     left, right, D = cuda_images(left, right, min_disparity, max_disparity, "K2")
-    lib, hbs, wl_pad, scratch = window_cost_setup(left, right, block_size,
-                                                  min_disparity, D, "K2")
+    hbs, wl_pad, scratch = window_cost_setup(left, right, block_size, min_disparity, D, "K2")
     h, w = right.shape[:2]
     cost = torch.empty((D, h, w), dtype=torch.float32, device=right.device)
-    stream = torch.cuda.current_stream(right.device).cuda_stream
-    with torch.cuda.device(right.device):
-        rc = lib.stpu_cost_volume(
-            left.data_ptr(), right.data_ptr(), cost.data_ptr(), scratch.data_ptr(),
-            h, w, left.shape[1], wl_pad, hbs, min_disparity, D, row0, total, stream)
-    if rc != 0:
-        raise RuntimeError(f"K2 launch failed: cudaError {rc}")
-    VOLUME_LAUNCHES += 1
+    launch("K2", _cost_volume, right.device,
+           left.data_ptr(), right.data_ptr(), cost.data_ptr(), scratch.data_ptr(),
+           h, w, left.shape[1], wl_pad, hbs, min_disparity, D, row0, total)
     return cost
 
 
@@ -155,13 +144,9 @@ def check_limits(h: int, w: int, wl: int, min_disparity: int, D: int, kernel: st
 
 def cuda_images(left, right, min_disparity: int, max_disparity: int, kernel: str,
                 max_planes=None):
-    """Check a kernel's image pair, disparity range and limits
-    (``check_limits``); return the images as contiguous float32 and the
-    number of planes D."""
-    if left.device != right.device or left.device.type != "cuda":
-        raise ValueError(
-            f"{kernel} needs both images on one CUDA device, got {left.device} "
-            f"and {right.device}")
+    """Check a kernel's image pair (on one CUDA device: ``on_card``),
+    disparity range and limits (``check_limits``); return the images as
+    contiguous float32 and the number of planes D."""
     if left.ndim != 3 or right.ndim != 3 or left.shape[2] != 3 or right.shape[2] != 3:
         raise ValueError(f"expected (H, W, 3) images, got {tuple(left.shape)} "
                          f"and {tuple(right.shape)}")
@@ -180,18 +165,15 @@ def cuda_images(left, right, min_disparity: int, max_disparity: int, kernel: str
 
 def window_cost_setup(left, right, block_size: int, min_disparity: int, D: int,
                       kernel: str):
-    """The kernel library, hbs, and the scratch of the window-cost routine's
-    layout pass: the left image as float2 + float planes zero-padded to
-    ``wl_pad = max(W_l, W + min_d + D)`` columns (``csrc/window_cost.cuh``).
-    Raises ``ValueError`` for a block size the routine does not take."""
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
-    lib = load_library()
-    hbs, max_hbs = (block_size - 1) // 2, lib.stpu_matcher_inputs_max_hbs()
+    """hbs and the scratch of the window-cost routine's layout pass: the
+    left image as float2 + float planes zero-padded to ``wl_pad = max(W_l,
+    W + min_d + D)`` columns (``csrc/window_cost.cuh``). Raises
+    ``ValueError`` for a block size the routine does not take."""
+    hbs, max_hbs = (block_size - 1) // 2, _max_hbs()
     if not 0 <= hbs <= max_hbs:
         raise ValueError(f"{kernel} takes block sizes up to {2 * max_hbs + 1}, got "
                          f"{block_size} (backend='xla' takes any)")
     h, w = right.shape[:2]
     wl_pad = max(left.shape[1], w + min_disparity + D)
     scratch = torch.empty((3 * h * wl_pad,), dtype=torch.float32, device=right.device)
-    return lib, hbs, wl_pad, scratch
+    return hbs, wl_pad, scratch

@@ -13,9 +13,9 @@ path, ``pose/graphs.py``); it neither synchronises nor reads the device.
 ``ransac_eight_point_op`` (``torch.ops.stpu.ransac_eight_point``) is one
 pair's call as a custom op whose ``vmap`` rule makes one launch pair of
 the whole batch, for ``run_batch``'s vmapped pose stage.
-``pose/ransac.py::ransac_eight_point`` picks the route by the matches'
-device and calls the op for CUDA matches only; ``ransac`` launches or
-raises.
+``pose/ransac.py::ransac_eight_point`` picks the route by the inputs'
+device and calls the op for inputs on one CUDA device only; ``ransac``
+launches or raises.
 """
 
 from __future__ import annotations
@@ -26,9 +26,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from stereo_reconstruction_tpu_torch.config import RansacConfig
+from stereo_reconstruction_tpu_torch.kernels.launch import entry, launch
 
-# kernel launches made by ``ransac`` (two a call); the plain twin never counts
-LAUNCHES = 0
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ransac = entry("stpu_ransac", [_p, _p, _f, _f, _p], _i)
+_max_points = entry("stpu_ransac_max_points", [], _i)
+# the most matches a pair may have with no key scratch
+shared_keys = entry("stpu_ransac_shared_keys", [], _i)
+_hyp_floats = entry("stpu_ransac_hyp_floats", [], _i)
+_hyp_ints = entry("stpu_ransac_hyp_ints", [], _i)
 
 
 def result_buffers(batch: Tuple[int, ...], support: int, device) -> Tuple[torch.Tensor, ...]:
@@ -42,17 +48,16 @@ def result_buffers(batch: Tuple[int, ...], support: int, device) -> Tuple[torch.
             empty(dtype=torch.bool), empty(4, 4), empty())
 
 
-def scratch_buffers(lib, batch: int, config: RansacConfig, n: int,
+def scratch_buffers(batch: int, config: RansacConfig, n: int,
                     device) -> Tuple[torch.Tensor, ...]:
     """The kernel's scratch: each hypothesis's floats (R, T, E, mean error,
     match fit) and ints (inliers or -1, valid, all below, its sample), each
     pair's winner and best fitting hypothesis, and, where N matches are more
     than shared memory holds, the refits' (B, N) sort keys."""
     k = config.num_hypotheses
-    keys = n if n > lib.stpu_ransac_shared_keys() else 0
-    return (torch.empty((batch, k, lib.stpu_ransac_hyp_floats()), dtype=torch.float32,
-                        device=device),
-            torch.empty((batch, k, lib.stpu_ransac_hyp_ints() + config.sample_size),
+    keys = n if n > shared_keys() else 0
+    return (torch.empty((batch, k, _hyp_floats()), dtype=torch.float32, device=device),
+            torch.empty((batch, k, _hyp_ints() + config.sample_size),
                         dtype=torch.int32, device=device),
             torch.empty((batch, 2), dtype=torch.int32, device=device),
             torch.empty((batch, keys), dtype=torch.int32, device=device))
@@ -62,8 +67,8 @@ def support_of(config: RansacConfig, n: int) -> int:
     return min(config.refine_support, n)
 
 
-def check(ml, mr, K_left, K_right, n_valid, u, config: RansacConfig, lib):
-    """Raise ValueError on what the kernel (``lib``'s) does not take."""
+def check(ml, mr, K_left, K_right, n_valid, u, config: RansacConfig):
+    """Raise ValueError on what the kernel does not take."""
     if ml.ndim != 3 or ml.shape[1] != 3 or mr.shape != ml.shape:
         raise ValueError(f"matches must be (B, 3, N), got {tuple(ml.shape)} and "
                          f"{tuple(mr.shape)}")
@@ -80,23 +85,17 @@ def check(ml, mr, K_left, K_right, n_valid, u, config: RansacConfig, lib):
             raise ValueError(f"{name} must be float32, got {t.dtype}")
     if n_valid.dtype != torch.int64:
         raise ValueError(f"n_valid must be int64, got {n_valid.dtype}")
-    check_config(config, n, lib)
+    check_config(config, n)
     if not 1 <= b <= 65535:
         raise ValueError(f"the RANSAC kernel takes 1 to 65535 pairs a call, got {b}")
 
 
-def check_config(config: RansacConfig, n: int, lib=None):
-    """Raise ValueError where the kernel (``lib``'s, else the built
-    library's) does not take ``config`` on N matches: sample_size and
-    refine_support (points a warp holds, one a lane) at most
-    ``stpu_ransac_max_points()``, sample_size at most N. The posed paths
-    call it before SIFT."""
-    if lib is None:
-        from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
-        lib = load_library()
+def check_config(config: RansacConfig, n: int):
+    """Raise ValueError where the kernel does not take ``config`` on N
+    matches: sample_size and refine_support (points a warp holds, one a
+    lane) at most ``stpu_ransac_max_points()``, sample_size at most N."""
     s, support = config.sample_size, support_of(config, n)
-    points = lib.stpu_ransac_max_points()
+    points = _max_points()
     if not (1 <= s <= min(n, points) and 1 <= support <= points
             and config.num_hypotheses >= 1 and config.refine_rounds >= 0):
         raise ValueError(f"the RANSAC kernel takes 1 <= sample_size <= min(N, {points}), "
@@ -106,7 +105,7 @@ def check_config(config: RansacConfig, n: int, lib=None):
                          f"refine_rounds {config.refine_rounds}")
 
 
-def call(lib, ml, mr, K_left, K_right, n_valid, u, config: RansacConfig,
+def call(ml, mr, K_left, K_right, n_valid, u, config: RansacConfig,
          out: Sequence[torch.Tensor], scratch: Sequence[torch.Tensor], stream) -> int:
     """``stpu_ransac`` on contiguous tensors of one device; its return code."""
     b, _, n = ml.shape
@@ -114,8 +113,8 @@ def call(lib, ml, mr, K_left, K_right, n_valid, u, config: RansacConfig,
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
     dims = (ctypes.c_int * 6)(b, n, config.num_hypotheses, config.sample_size,
                               config.refine_rounds, support_of(config, n))
-    return lib.stpu_ransac(ptrs, dims, float(config.error_threshold),
-                           float(config.error_threshold ** 2), stream)
+    return _ransac(ptrs, dims, float(config.error_threshold),
+                   float(config.error_threshold ** 2), stream)
 
 
 def ransac(ml: torch.Tensor, mr: torch.Tensor, K_left: torch.Tensor, K_right: torch.Tensor,
@@ -125,31 +124,19 @@ def ransac(ml: torch.Tensor, mr: torch.Tensor, K_left: torch.Tensor, K_right: to
     """``ransac_eight_point`` of B pairs on the card, two launches on the
     current stream: (B, 3, N) float32 matches, (B, 3, 3) intrinsics, (B,)
     int64 valid counts and (B, num_hypotheses, N) uniforms, all on one CUDA
-    device. Returns the ``RansacResult`` fields with a leading B, written
-    into ``out`` (``result_buffers``) where given."""
-    global LAUNCHES
+    device (``pose/ransac.py::ransac_eight_point`` routes only those here).
+    Returns the ``RansacResult`` fields with a leading B, written into
+    ``out`` (``result_buffers``) where given."""
     tensors = (ml, mr, K_left, K_right, n_valid, u)
-    device = ml.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
-        raise ValueError("the RANSAC kernel needs all its inputs on one CUDA device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
-    lib = load_library()
-    check(*tensors, config, lib)
+    check(*tensors, config)
     ml, mr, K_left, K_right, n_valid, u = (t.contiguous() for t in tensors)
     b, _, n = ml.shape
     if out is None:
-        out = result_buffers((b,), support_of(config, n), device)
+        out = result_buffers((b,), support_of(config, n), ml.device)
     if scratch is None:
-        scratch = scratch_buffers(lib, b, config, n, device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = call(lib, ml, mr, K_left, K_right, n_valid, u, config, out, scratch, stream)
-    if rc != 0:
-        raise RuntimeError(f"RANSAC launch failed: cudaError {rc} "
-                           f"({lib.stpu_ransac_error(rc).decode()})")
-    LAUNCHES += 2
+        scratch = scratch_buffers(b, config, n, ml.device)
+    launch("ransac", call, ml.device, ml, mr, K_left, K_right, n_valid, u, config, out,
+           scratch, count=2)
     return tuple(out)
 
 

@@ -21,22 +21,23 @@ kernel or raise (a refused or failed cluster launch raises
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
+from stereo_reconstruction_tpu_torch.kernels.launch import entry, launch, on_card
 from stereo_reconstruction_tpu_torch.ops.smoothing import smoothed_argmin_from_inputs
 
-# kernel launches made by ``row_scan``; the plain twin never counts
-LAUNCHES = 0
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_row_scan = entry("stpu_row_scan", [_p] * 9 + [_i, _i, ctypes.c_float, _i, _i, _p], _i)
+_max_width = entry("stpu_row_scan_max_width", [], _i)
 
 
 def max_width() -> int:
     """The widest row K1b takes (8 CTAs x 16 strips x 64 columns), as the
     kernel library defines it; builds the library on first use."""
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
-    return load_library().stpu_row_scan_max_width()
+    return _max_width()
 
 
 def row_scan(
@@ -54,18 +55,12 @@ def row_scan(
 ) -> torch.Tensor:
     """The (H, W) float32 disparity of the exact smoothing scan: the plain
     twin for CPU tensors, K1b for CUDA tensors."""
-    global LAUNCHES
     planes = (m0, a0, c_zero, diag_up, diag_lf, black)
-    seeds = tuple(t for t in (first_flags, init_prev) if t is not None)
-    if all(t.device.type == "cpu" for t in planes + seeds):
+    if not on_card("K1b", *planes, first_flags, init_prev):
         return smoothed_argmin_from_inputs(
             m0, a0, c_zero, diag_up, diag_lf, black, smooth_factor=smooth_factor,
             d_first=d_first, n_planes=n_planes, first_flags=first_flags,
             init_prev=init_prev)
-    device = m0.device
-    if device.type != "cuda" or any(t.device != device for t in planes + seeds):
-        raise ValueError("K1b needs all its planes on one CUDA device, got "
-                         f"{[str(t.device) for t in planes + seeds]}")
     if m0.ndim != 2 or any(t.shape != m0.shape for t in planes):
         raise ValueError(f"expected six (H, W) planes, got {[tuple(t.shape) for t in planes]}")
     for name, t in zip(("m0", "c_zero", "diag_up", "diag_lf"), (m0, c_zero, diag_up, diag_lf)):
@@ -99,18 +94,9 @@ def row_scan(
                              f"{tuple(init_prev.shape)} {init_prev.dtype}")
         init_prev = init_prev.contiguous()
         prev_ptr = init_prev.data_ptr()
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
-    lib = load_library()
-    out = torch.empty((h, w), dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = lib.stpu_row_scan(
-            m0.data_ptr(), a0.data_ptr(), c_zero.data_ptr(), diag_up.data_ptr(),
-            diag_lf.data_ptr(), black.data_ptr(), first_ptr, prev_ptr, out.data_ptr(),
-            h, w, float(smooth_factor), d_first, n_planes, stream)
-    if rc != 0:
-        raise RuntimeError(f"K1b launch failed: cudaError {rc} "
-                           f"({lib.stpu_row_scan_error(rc).decode()})")
-    LAUNCHES += 1
+    out = torch.empty((h, w), dtype=torch.float32, device=m0.device)
+    launch("K1b", _row_scan, m0.device,
+           m0.data_ptr(), a0.data_ptr(), c_zero.data_ptr(), diag_up.data_ptr(),
+           diag_lf.data_ptr(), black.data_ptr(), first_ptr, prev_ptr, out.data_ptr(),
+           h, w, float(smooth_factor), d_first, n_planes)
     return out

@@ -13,7 +13,7 @@ device-resident images neither uploads nor synchronises, and a card warp
 equals the CPU path's bit for bit.
 
 ``ops/warp.py::warp_inverse_maps`` picks the route by device and calls
-``warp`` for CUDA images only; ``warp`` launches or raises.
+``warp`` for images on one CUDA device only; ``warp`` launches or raises.
 """
 
 from __future__ import annotations
@@ -23,8 +23,11 @@ from typing import List, Tuple
 
 import torch
 
-# kernel launches made by ``warp``; the plain twin never counts
-LAUNCHES = 0
+from stereo_reconstruction_tpu_torch.kernels.launch import entry, launch
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_warp = entry("stpu_warp", [_p, _p, _p, _i, _i, _i, _p, _i, _i, _i, _p], _i)
+_max_images = entry("stpu_warp_max_images", [], _i)
 
 
 def warp(
@@ -39,10 +42,6 @@ def warp(
     others converted to float32 first, as the twin converts them), any
     layout and any channel count (1 and 3 in the kernel's pixel loop, others
     a plane a channel)."""
-    device = images[0].device
-    if device.type != "cuda" or any(img.device != device for img in images):
-        raise ValueError("the warp kernel needs all its images on one CUDA device, got "
-                         f"{[str(img.device) for img in images]}")
     if method not in ("bilinear", "nearest"):
         raise ValueError(f"unknown warp method {method!r}")
     if Hinv.device.type != "cpu" or Hinv.dtype != torch.float32:
@@ -64,7 +63,6 @@ def warp(
 
 
 def _launch(images, Hinv, out_shape, method, channels) -> torch.Tensor:
-    global LAUNCHES
     for img in images:
         if img.numel() == 0 or img.numel() >= 2 ** 31:
             raise ValueError(f"the warp kernel needs non-empty images under 2**31 entries, "
@@ -72,21 +70,12 @@ def _launch(images, Hinv, out_shape, method, channels) -> torch.Tensor:
     h_out, w_out = (int(n) for n in out_shape)
     if not (1 <= h_out <= 65535 * 4 and w_out >= 1):
         raise ValueError(f"out_shape must be positive (h_out <= 262140), got {out_shape}")
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
-    lib = load_library()
     n, first, device = len(images), images[0], images[0].device
     srcs = (ctypes.c_void_p * n)(*(img.data_ptr() for img in images))
     shapes = (ctypes.c_int * (2 * n))(*(int(s) for img in images for s in img.shape[:2]))
     maps = Hinv.contiguous()
     out = torch.empty((n, h_out, w_out, *first.shape[2:]), dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = lib.stpu_warp(srcs, shapes, maps.data_ptr(), n, int(first.dtype == torch.uint8),
-                           channels, out.data_ptr(), h_out, w_out, int(method == "nearest"),
-                           stream)
-    if rc != 0:
-        raise RuntimeError(f"warp launch failed: cudaError {rc} "
-                           f"({lib.stpu_warp_error(rc).decode()})")
-    LAUNCHES += -(-n // lib.stpu_warp_max_images())
+    launch("warp", _warp, device, srcs, shapes, maps.data_ptr(), n,
+           int(first.dtype == torch.uint8), channels, out.data_ptr(), h_out, w_out,
+           int(method == "nearest"), count=-(-n // _max_images()))
     return out

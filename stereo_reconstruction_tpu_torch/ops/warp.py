@@ -23,6 +23,7 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from stereo_reconstruction_tpu_torch.kernels.launch import on_card
 from stereo_reconstruction_tpu_torch.ops import cuda_warp
 
 
@@ -65,7 +66,7 @@ def warp_inverse_maps(
     if any(img.shape[2:] != images[0].shape[2:] for img in images):
         raise ValueError("a batch's images must share their channels, got "
                          f"{[tuple(img.shape) for img in images]}")
-    if all(img.device.type == "cpu" for img in images):
+    if not on_card("warp", *images):
         return torch.stack([warp_inverse_map(img, m, out_shape, method)
                             for img, m in zip(images, Hinv)])
     return cuda_warp.warp(images, Hinv, out_shape, method)

@@ -21,10 +21,17 @@ the volume in (H, W, D) order, as large as the volume.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-# kernel launches made by ``window_scan``; the plain twin never counts
-LAUNCHES = 0
+from stereo_reconstruction_tpu_torch.kernels.launch import entry, launch, on_card
+
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_scan = entry("stpu_perceptual_scan", [_p] * 4 + [_i] * 4 + [_p], _i)
+_smem_bytes = entry("stpu_perceptual_scan_smem_bytes", [_i, _i], _ll)
+_scratch_bytes = entry("stpu_perceptual_scan_scratch_bytes", [_i, _i, _i], _ll)
+_max_smem = entry("stpu_perceptual_scan_max_smem", [], _ll)
 
 
 def weight_table(n: int, sigma: float, bias: float, device="cpu") -> torch.Tensor:
@@ -66,21 +73,14 @@ def window_scan_plain(cost: torch.Tensor, table: torch.Tensor, chunk: int) -> to
 def max_smem() -> int:
     """The most dynamic shared memory K4 may take (bytes), as the kernel
     library defines it; builds the library on first use."""
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
-    return load_library().stpu_perceptual_scan_max_smem()
+    return _max_smem()
 
 
 def window_scan(cost: torch.Tensor, table: torch.Tensor, chunk: int) -> torch.Tensor:
     """(H, W) float32 argmin indices of the windowed smoother: the plain
     twin for CPU tensors, K4 for CUDA tensors."""
-    global LAUNCHES
-    if cost.device.type == "cpu" and table.device.type == "cpu":
+    if not on_card("K4", cost, table):
         return window_scan_plain(cost, table, chunk)
-    device = cost.device
-    if device.type != "cuda" or table.device != device:
-        raise ValueError(f"K4 needs the volume and the table on one CUDA device, got "
-                         f"{cost.device} and {table.device}")
     if cost.ndim != 3 or cost.dtype != torch.float32 or not cost.is_contiguous():
         raise ValueError(f"K4 takes a contiguous (H, D, W) float32 volume, got "
                          f"{tuple(cost.shape)} {cost.dtype}")
@@ -96,23 +96,14 @@ def window_scan(cost: torch.Tensor, table: torch.Tensor, chunk: int) -> torch.Te
         if v >= 2**31:
             raise ValueError(f"K4 takes {name} < 2^31, got {v}")
     chunk = min(chunk, w)                 # one chunk a row is the same recurrence
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
-    lib = load_library()
-    smem = lib.stpu_perceptual_scan_smem_bytes(D, chunk)
+    smem = _smem_bytes(D, chunk)
     if smem > max_smem():
         raise ValueError(f"K4's shared memory for D={D} and chunk={chunk} is {smem} bytes, "
                          f"above the {max_smem()} a CTA may have (the D + 1 weights, D + 1 "
                          f"ones and two rows of chunk indices)")
     # the volume's (H, W, D) copy that K4's scan reads
-    cols = torch.empty(lib.stpu_perceptual_scan_scratch_bytes(h, D, w) // 4,
-                       dtype=torch.float32, device=device)
-    out = torch.empty((h, w), dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = lib.stpu_perceptual_scan(cost.data_ptr(), table.data_ptr(), cols.data_ptr(),
-                                      out.data_ptr(), h, D, w, chunk, stream)
-    if rc != 0:
-        raise RuntimeError(f"K4 launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    cols = torch.empty(_scratch_bytes(h, D, w) // 4, dtype=torch.float32, device=cost.device)
+    out = torch.empty((h, w), dtype=torch.float32, device=cost.device)
+    launch("K4", _scan, cost.device, cost.data_ptr(), table.data_ptr(), cols.data_ptr(),
+           out.data_ptr(), h, D, w, chunk)
     return out

@@ -28,7 +28,6 @@ from stereo_reconstruction_tpu_torch.config import PipelineConfig
 from stereo_reconstruction_tpu_torch.data.records import StereoPair
 from stereo_reconstruction_tpu_torch.io.image import disparity_png_roundtrip
 from stereo_reconstruction_tpu_torch.io.pfm import write_pfm
-from stereo_reconstruction_tpu_torch.ops import cuda_ransac
 from stereo_reconstruction_tpu_torch.ops import metrics as metrics_mod
 from stereo_reconstruction_tpu_torch.ops.block_search import block_search_right
 from stereo_reconstruction_tpu_torch.ops.features import Keypoints, detect_and_describe_batch
@@ -40,7 +39,7 @@ from stereo_reconstruction_tpu_torch.pose.pipeline import (
     settle_pose,
 )
 from stereo_reconstruction_tpu_torch.pose.graphs import pose_graphs
-from stereo_reconstruction_tpu_torch.pose.ransac import draw_uniforms
+from stereo_reconstruction_tpu_torch.pose.ransac import check_kernel_config, draw_uniforms
 from stereo_reconstruction_tpu_torch.recon.backproject import backproject
 from stereo_reconstruction_tpu_torch.recon.disparity import (
     disparity_to_depth,
@@ -96,8 +95,7 @@ def pose_device(images: torch.Tensor, K_left: torch.Tensor, K_right: torch.Tenso
     ``BA_ROUNDS`` rounds while it has not converged (JAX: one;
     ``pose/pipeline.py::settle_pose``). On the card the stages after SIFT
     replay CUDA graphs (``pose/graphs.py``), with the same result."""
-    if images.device.type == "cuda":
-        cuda_ransac.check_config(config.ransac, config.frontend.max_keypoints)
+    check_kernel_config(config.ransac, config.frontend.max_keypoints, images.device)
     with span("pose.features"):
         kp = detect_and_describe_batch(images, config.frontend)
     if images.device.type == "cuda":

@@ -70,7 +70,6 @@ from torch.func import vmap
 
 from stereo_reconstruction_tpu_torch.config import PipelineConfig
 from stereo_reconstruction_tpu_torch.data.records import StereoPair, pad_to
-from stereo_reconstruction_tpu_torch.ops import cuda_ransac
 from stereo_reconstruction_tpu_torch.ops import metrics as metrics_mod
 from stereo_reconstruction_tpu_torch.ops.features import Keypoints, detect_and_describe_batch
 from stereo_reconstruction_tpu_torch.ops.warp import host_inverse, warp_perspective
@@ -79,7 +78,7 @@ from stereo_reconstruction_tpu_torch.parallel.multihost import ProcessGroupMesh
 from stereo_reconstruction_tpu_torch.pipeline import _device, compute_disparity, \
     pose_from_keypoints
 from stereo_reconstruction_tpu_torch.pose.pipeline import PoseEstimate, settle_pose
-from stereo_reconstruction_tpu_torch.pose.ransac import draw_uniforms
+from stereo_reconstruction_tpu_torch.pose.ransac import check_kernel_config, draw_uniforms
 from stereo_reconstruction_tpu_torch.recon.disparity import (
     disparity_to_depth,
     remove_disparity_outliers,
@@ -129,8 +128,7 @@ def _pose_dispatch(left, right, K_left, K_right, uniforms, config) -> PoseEstima
     """One detector batch of 2B images, then ``pipeline.pose_from_keypoints``
     under ``torch.func.vmap``: queued with no host sync."""
     B = left.shape[0]
-    if left.device.type == "cuda":
-        cuda_ransac.check_config(config.ransac, config.frontend.max_keypoints)
+    check_kernel_config(config.ransac, config.frontend.max_keypoints, left.device)
     kp = detect_and_describe_batch(torch.cat([left, right]), config.frontend)
     kp_l = Keypoints(*(x[:B] for x in kp))
     kp_r = Keypoints(*(x[B:] for x in kp))

@@ -32,7 +32,6 @@ from typing import Callable, Dict, Sequence
 import torch
 
 from stereo_reconstruction_tpu_torch.config import PipelineConfig
-from stereo_reconstruction_tpu_torch.kernels.build import load_library
 from stereo_reconstruction_tpu_torch.ops import cuda_ransac
 from stereo_reconstruction_tpu_torch.ops.features import Keypoints
 from stereo_reconstruction_tpu_torch.ops.matching import match_descriptors, valid_first
@@ -96,8 +95,7 @@ class PoseGraphs:
         self.rr = cuda_ransac.result_buffers((), cuda_ransac.support_of(config.ransac, n),
                                              self.device)
         self.ransac_out = [x[None] for x in self.rr]
-        self.ransac_scratch = cuda_ransac.scratch_buffers(load_library(), 1, config.ransac, n,
-                                                          self.device)
+        self.ransac_scratch = cuda_ransac.scratch_buffers(1, config.ransac, n, self.device)
         self._ransac()
         self.refine = _Graph(refine, [ml, mr, n_valid, *self.rr], pool)
         est = PoseEstimate(*self.refine.outputs)

@@ -22,7 +22,7 @@ On the card ``ransac_eight_point`` is the hand-written kernel
 (``csrc/ransac.cuh``, launched by ``ops/cuda_ransac.py``): two launches in
 place of the ~45,000 small ops of ``ransac_plain``, its plain twin, which
 CPU matches take. Nothing falls back: a CUDA input the kernel does not take
-raises.
+raises, and ``check_kernel_config`` lets a caller raise before SIFT.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from stereo_reconstruction_tpu_torch.config import RansacConfig
-from stereo_reconstruction_tpu_torch.ops import geometry as geo
-from stereo_reconstruction_tpu_torch.ops.cuda_ransac import ransac_eight_point_op
+from stereo_reconstruction_tpu_torch.kernels.launch import on_card
+from stereo_reconstruction_tpu_torch.ops import cuda_ransac, geometry as geo
 from stereo_reconstruction_tpu_torch.pose.eight_point import EightPointResult, eight_point
 
 
@@ -49,6 +49,14 @@ class RansacResult(NamedTuple):
     valid: torch.Tensor           # () bool: some hypothesis is cheirality-valid
     fit_pose: torch.Tensor        # (4, 4) of the most-inlier hypotheses, the best fitting
     fit_error: torch.Tensor       # () its ``match_fit``
+
+
+def check_kernel_config(config: RansacConfig, n: int, device) -> None:
+    """Raise ValueError where the card's kernel does not take ``config`` on
+    N matches (``cuda_ransac.check_config``); nothing for the CPU. The posed
+    paths call it before SIFT."""
+    if torch.device(device).type == "cuda":
+        cuda_ransac.check_config(config, n)
 
 
 def draw_uniforms(config: RansacConfig, n: int,
@@ -135,8 +143,10 @@ def ransac_eight_point(
     uniforms: Optional[torch.Tensor] = None,    # (num_hypotheses, N)
     generator: Optional[torch.Generator] = None,
 ) -> RansacResult:
-    """CUDA matches: the kernel (``ops/cuda_ransac.py``, two launches; a
-    batch's under ``torch.func.vmap`` too); CPU matches: ``ransac_plain``."""
+    """Matches and intrinsics on one CUDA device: the kernel
+    (``ops/cuda_ransac.py``, two launches; a batch's under
+    ``torch.func.vmap`` too); on the CPU: ``ransac_plain``."""
+    card = on_card("ransac", matches_left, matches_right, K_left, K_right)
     device = matches_left.device
     n = matches_left.shape[-1]
     n_valid = torch.as_tensor(n if num_matches_valid is None else num_matches_valid,
@@ -144,8 +154,8 @@ def ransac_eight_point(
     if uniforms is None:
         uniforms = draw_uniforms(config, n, generator)
     u = torch.as_tensor(uniforms, dtype=torch.float32).to(device)
-    if device.type == "cuda":
-        return RansacResult(*ransac_eight_point_op(
+    if card:
+        return RansacResult(*cuda_ransac.ransac_eight_point_op(
             matches_left, matches_right, K_left, K_right, n_valid.to(torch.int64), u,
             config.num_hypotheses, config.sample_size, float(config.error_threshold),
             config.refine_rounds, config.refine_support))

@@ -42,7 +42,6 @@ struct cudaLaunchConfig_t {
   unsigned numAttrs;
 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline const char* cudaGetErrorString(cudaError_t) { return "host stand-in"; }
 
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }

@@ -284,11 +284,9 @@ def compare(kernel, ml, mr, n_valid, config, K, u, device="cpu"):
 def card_kernel(ml, mr, K_left, K_right, n_valid, u, config):
     """``cuda_ransac.ransac`` on card tensors with its scratch kept, in
     ``compare``'s form: (the ``RansacResult`` fields, the scratch)."""
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
     from stereo_reconstruction_tpu_torch.ops import cuda_ransac
 
-    scratch = cuda_ransac.scratch_buffers(load_library(), ml.shape[0], config, ml.shape[-1],
-                                          ml.device)
+    scratch = cuda_ransac.scratch_buffers(ml.shape[0], config, ml.shape[-1], ml.device)
     out = cuda_ransac.ransac(ml, mr, K_left, K_right, n_valid, u, config, scratch=scratch)
     torch.cuda.synchronize(ml.device)
     return out, scratch

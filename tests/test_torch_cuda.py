@@ -57,6 +57,7 @@ import torch
 
 from stereo_reconstruction_tpu_torch.config import MatcherConfig, PipelineConfig
 from stereo_reconstruction_tpu_torch.data.records import StereoPair, pad_to
+from stereo_reconstruction_tpu_torch.kernels.launch import LAUNCHES
 from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
 from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
 from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
@@ -165,13 +166,13 @@ def test_k1_planes_bit_equal_to_plain(cuda, rng, h, w, wl_extra, bs, min_d, max_
 
 def test_wrapper_counts_each_launch(cuda, rng):
     left, right = _integer_pair(rng, 21, 40)
-    before = ccv.LAUNCHES
+    before = LAUNCHES["K1"]
     ccv.matcher_inputs(torch.from_numpy(left).to(cuda),
                        torch.from_numpy(right).to(cuda), 5, 0, 8)
-    assert ccv.LAUNCHES == before + 1
+    assert LAUNCHES["K1"] == before + 1
     ccv.matcher_inputs_plain(torch.from_numpy(left).to(cuda),
                              torch.from_numpy(right).to(cuda), 5, 0, 8)
-    assert ccv.LAUNCHES == before + 1
+    assert LAUNCHES["K1"] == before + 1
 
 
 def test_block_search_kernel_equals_plain(cuda, rng):
@@ -270,9 +271,9 @@ def test_k1b_bit_equal_to_plain_across_strip_boundaries(cuda, w, h, seeded):
 def test_block_search_past_4096_columns_runs_k1_and_k1b(cuda, rng):
     left, right = (torch.from_numpy(a).to(cuda) for a in _integer_pair(rng, 6, 6000))
     cfg = MatcherConfig(block_size=5, max_disparity=16)
-    k1, k1b = ccv.LAUNCHES, crs.LAUNCHES
+    k1, k1b = LAUNCHES["K1"], LAUNCHES["K1b"]
     got = block_search_right(left, right, cfg)
-    assert (ccv.LAUNCHES - k1, crs.LAUNCHES - k1b) == (1, 1)
+    assert (LAUNCHES["K1"] - k1, LAUNCHES["K1b"] - k1b) == (1, 1)
     want = block_search_right(left, right, MatcherConfig(block_size=5, max_disparity=16,
                                                          backend="xla"))
     assert torch.equal(got, want)
@@ -290,27 +291,27 @@ def test_k1b_refused_launch_raises_and_counts_nothing(cuda, monkeypatch):
         def stpu_row_scan(self, *args):
             return 9
 
-        def stpu_row_scan_error(self, err):
+        def stpu_error_name(self, err):
             return b"invalid configuration argument"
 
     cost, black = scan_volume(np.random.default_rng(0), 4, 40, 8)
     planes = volume_reductions(torch.from_numpy(cost).to(cuda), 0)
     monkeypatch.setattr(build, "load_library", lambda: Refusing())
-    before = crs.LAUNCHES
+    before = LAUNCHES["K1b"]
     with pytest.raises(RuntimeError, match=r"K1b launch failed: cudaError 9 \(invalid conf"):
         crs.row_scan(*planes, torch.from_numpy(black).to(cuda), n_planes=8)
-    assert crs.LAUNCHES == before
+    assert LAUNCHES["K1b"] == before
 
 
 def test_k1b_wrapper_checks_and_counts(cuda):
     cost, black = scan_volume(np.random.default_rng(0), 4, 40, 8)
     planes = volume_reductions(torch.from_numpy(cost).to(cuda), 0)
     black = torch.from_numpy(black).to(cuda)
-    before = crs.LAUNCHES
+    before = LAUNCHES["K1b"]
     crs.row_scan(*planes, black, n_planes=8)
-    assert crs.LAUNCHES == before + 1
+    assert LAUNCHES["K1b"] == before + 1
     smoothed_argmin_from_inputs(*planes, black, n_planes=8)
-    assert crs.LAUNCHES == before + 1
+    assert LAUNCHES["K1b"] == before + 1
     with pytest.raises(ValueError, match="int32"):
         crs.row_scan(planes[0], planes[1].long(), *planes[2:], black, n_planes=8)
     assert crs.max_width() == 8192
@@ -374,17 +375,17 @@ def test_k3_is_deterministic_on_non_integer_pair(cuda, rng):
 def test_k2_and_k3_wrappers_count_each_launch(cuda, rng):
     left, right = _integer_pair(rng, 21, 40)
     L, R = torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)
-    before = (ccv.LAUNCHES, ccv.VOLUME_LAUNCHES, cbs.LAUNCHES)
+    before = (LAUNCHES["K1"], LAUNCHES["K2"], LAUNCHES["K3"])
     ccv.cost_volume(L, R, 5, 0, 8)
-    assert (ccv.LAUNCHES, ccv.VOLUME_LAUNCHES, cbs.LAUNCHES) == (
+    assert (LAUNCHES["K1"], LAUNCHES["K2"], LAUNCHES["K3"]) == (
         before[0], before[1] + 1, before[2])
     cfg = MatcherConfig(block_size=5, max_disparity=8)
     cbs.block_search_fused(L, R, cfg)
-    assert (ccv.LAUNCHES, ccv.VOLUME_LAUNCHES, cbs.LAUNCHES) == (
+    assert (LAUNCHES["K1"], LAUNCHES["K2"], LAUNCHES["K3"]) == (
         before[0], before[1] + 1, before[2] + 1)
     ccv.cost_volume_right_ssd(L, R, 5, 0, 8)
     cbs.block_search_fused_plain(L, R, cfg)
-    assert (ccv.LAUNCHES, ccv.VOLUME_LAUNCHES, cbs.LAUNCHES) == (
+    assert (LAUNCHES["K1"], LAUNCHES["K2"], LAUNCHES["K3"]) == (
         before[0], before[1] + 1, before[2] + 1)
 
 
@@ -449,7 +450,7 @@ def test_pose_graphs_equal_the_eager_stage(cuda):
 
 
 def _launches():
-    return (ccv.LAUNCHES, crs.LAUNCHES, ccv.VOLUME_LAUNCHES, cbs.LAUNCHES)
+    return (LAUNCHES["K1"], LAUNCHES["K1b"], LAUNCHES["K2"], LAUNCHES["K3"])
 
 
 def test_run_pair_without_F_launches_k1_once(cuda):
@@ -672,11 +673,11 @@ def test_k4_bit_equal_to_plain_on_planted_volumes(cuda, h, d, w, chunk, ties):
 def test_k4_wrapper_checks_and_counts(cuda):
     vol = torch.from_numpy(perceptual_volume(np.random.default_rng(0), 3, 12, 40)).to(cuda)
     table = pscan.weight_table(12, 25.0, 0.85, cuda)
-    before = pscan.LAUNCHES
+    before = LAUNCHES["K4"]
     pscan.window_scan(vol, table, 20)
-    assert pscan.LAUNCHES == before + 1
+    assert LAUNCHES["K4"] == before + 1
     pscan.window_scan_plain(vol, table, 20)
-    assert pscan.LAUNCHES == before + 1
+    assert LAUNCHES["K4"] == before + 1
     with pytest.raises(ValueError, match="one CUDA device"):
         pscan.window_scan(vol, table.cpu(), 20)
     with pytest.raises(ValueError, match="D \\+ 1 = 13"):
@@ -692,23 +693,23 @@ def test_k4_wrapper_checks_and_counts(cuda):
     big_table = pscan.weight_table(2000, 25.0, 0.85, cuda)
     assert torch.equal(pscan.window_scan(big, big_table, 64),
                        pscan.window_scan_plain(big, big_table, 64))
-    assert pscan.LAUNCHES == before + 2
+    assert LAUNCHES["K4"] == before + 2
     # the table and two rows of chunk indices must fit
     wide = torch.zeros((1, 1, 30000), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         pscan.window_scan(wide, pscan.weight_table(1, 25.0, 0.85, cuda), 30000)
     assert pscan.max_smem() == 232448
-    assert pscan.LAUNCHES == before + 2
+    assert LAUNCHES["K4"] == before + 2
 
 
 def test_windowed_search_on_card_matches_cpu(cuda, tmp_path):
     left, right = perceptual_pair(np.random.default_rng(1), 20, 60)
     params = narrow_vgg_params()
     cfg = PerceptualConfig(max_disparity=16, row_block=8)
-    before = pscan.LAUNCHES
+    before = LAUNCHES["K4"]
     got = windowed_lpips_search(params, torch.from_numpy(left).to(cuda),
                                 torch.from_numpy(right).to(cuda), cfg)
-    assert pscan.LAUNCHES == before + 1 and got.device.type == "cuda"
+    assert LAUNCHES["K4"] == before + 1 and got.device.type == "cuda"
     want = windowed_lpips_search(params, torch.from_numpy(left), torch.from_numpy(right), cfg)
     got = got.cpu().numpy()
     want = want.numpy()
@@ -724,7 +725,7 @@ def test_windowed_search_on_card_matches_cpu(cuda, tmp_path):
         perceptual=PerceptualConfig(weights_path=path))
     disp = compute_disparity(torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda),
                              config)
-    assert pscan.LAUNCHES == before + 2 and disp.device.type == "cuda"
+    assert LAUNCHES["K4"] == before + 2 and disp.device.type == "cuda"
     assert np.mean(disp.cpu().numpy() == got) >= 0.995
 
 
@@ -804,9 +805,9 @@ def test_sharded_matcher_on_card(cuda, rng):
     right = torch.from_numpy(np.stack([p[1] for p in pairs])).to(cuda)
     mesh = make_mesh(data=2, tile=4, devices=[cuda] * 8)
     cfg = MatcherConfig(block_size=9, max_disparity=24)
-    k1, k1b = ccv.LAUNCHES, crs.LAUNCHES
+    k1, k1b = LAUNCHES["K1"], LAUNCHES["K1b"]
     got = sharded_block_search_right(left, right, mesh, cfg, exact=True)
-    assert (ccv.LAUNCHES - k1, crs.LAUNCHES - k1b) == (8, 32)
+    assert (LAUNCHES["K1"] - k1, LAUNCHES["K1b"] - k1b) == (8, 32)
     single = torch.stack([block_search_right(left[i], right[i], cfg) for i in range(2)])
     assert torch.equal(got, single)
     plain = sharded_block_search_right(left.cpu(), right.cpu(),
@@ -852,9 +853,9 @@ def test_warp_kernel_bit_equal_to_plain(cuda, rng, method, channels, dtype, n, k
              else rng.uniform(-50, 50, shape)).astype(dtype)      # negatives: -0.0 outside
         imgs.append(torch.from_numpy(a).to(cuda))
     hinv = _warp_maps(rng, n, kind)
-    before = cuda_warp.LAUNCHES
+    before = LAUNCHES["warp"]
     got = cuda_warp.warp(imgs, hinv, out_shape, method)
-    assert cuda_warp.LAUNCHES == before + (2 if n > 32 else 1)
+    assert LAUNCHES["warp"] == before + (2 if n > 32 else 1)
     want = torch.stack([warp_inverse_map(img, m.to(cuda), out_shape, method)
                         for img, m in zip(imgs, hinv)])
     torch.cuda.synchronize()
@@ -889,9 +890,9 @@ def test_warp_takes_what_the_twin_takes(cuda, rng, case, method):
     imgs = warp_images(rng, case)
     H = np.stack([np.eye(3) + rng.normal(0, [[0.05, 0.05, 4], [0.05, 0.05, 4],
                                              [5e-4, 5e-4, 0.02]]) for _ in imgs])
-    before = cuda_warp.LAUNCHES
+    before = LAUNCHES["warp"]
     got = warp_perspective([img.to(cuda) for img in imgs], H, (36, 44), method)
-    assert cuda_warp.LAUNCHES == before + 1
+    assert LAUNCHES["warp"] == before + 1
     hinv = torch.linalg.inv(torch.from_numpy(H).float())
     on_card = torch.stack([warp_inverse_map(img.to(cuda), m.to(cuda), (36, 44), method)
                            for img, m in zip(imgs, hinv)])
@@ -904,7 +905,7 @@ def test_warp_takes_what_the_twin_takes(cuda, rng, case, method):
 def test_warp_wrapper_checks(cuda):
     img = torch.zeros((10, 12, 3), dtype=torch.uint8, device=cuda)
     maps = torch.eye(3)[None].repeat(2, 1, 1)
-    before = cuda_warp.LAUNCHES
+    before = LAUNCHES["warp"]
     with pytest.raises(ValueError, match="share their channels"):
         warp_inverse_maps([img, img[..., :2]], maps, (8, 8))
     with pytest.raises(ValueError, match="float32 on the CPU"):
@@ -917,7 +918,7 @@ def test_warp_wrapper_checks(cuda):
         warp_inverse_maps([img[:0]], maps[:1], (8, 8))
     with pytest.raises(torch.linalg.LinAlgError):
         warp_perspective([img], np.zeros((1, 3, 3)), (8, 8))
-    assert cuda_warp.LAUNCHES == before
+    assert LAUNCHES["warp"] == before
 
 
 def test_rectify_and_backwarp_make_no_host_sync(cuda):
@@ -957,10 +958,10 @@ def test_warp_launches_twice_a_fixed_F_run_pair(cuda, tmp_path):
 
     left, right, K, _, _, F, _ = nonplanar_scene(np.random.default_rng(4), 240, 320)
     pair = StereoPair(left, right, K.astype(np.float32), K.astype(np.float32), name="F")
-    before = cuda_warp.LAUNCHES
+    before = LAUNCHES["warp"]
     run_pair(pair, PipelineConfig(matcher=MatcherConfig(block_size=7, max_disparity=80)),
              fixed_F=F, device=cuda)
-    assert cuda_warp.LAUNCHES == before + 2
+    assert LAUNCHES["warp"] == before + 2
     # the perceptual search on a rectified pair never warps
     pl, pr = perceptual_pair(np.random.default_rng(1), 20, 60)
     path = str(tmp_path / "narrow.npz")
@@ -968,11 +969,11 @@ def test_warp_launches_twice_a_fixed_F_run_pair(cuda, tmp_path):
     config = PipelineConfig().replace(matcher=MatcherConfig(cost="perceptual", max_disparity=16),
                                       perceptual=PerceptualConfig(weights_path=path))
     compute_disparity(torch.from_numpy(pl).to(cuda), torch.from_numpy(pr).to(cuda), config)
-    assert cuda_warp.LAUNCHES == before + 2
+    assert LAUNCHES["warp"] == before + 2
     # run_batch: the 2B rectifying warps in one launch, the back-warps in another
     run_batch(_batch_pairs(), BATCH_CONFIG, uniforms=batch_uniforms(BATCH_CONFIG, 3),
               device=cuda)
-    assert cuda_warp.LAUNCHES == before + 4
+    assert LAUNCHES["warp"] == before + 4
 
 
 @pytest.mark.parametrize("case", ["posed_request_matches", "far_winner_request", "scene",
@@ -989,9 +990,7 @@ def test_ransac_kernel_equals_twin_on_card(cuda, case):
         ml, mr, nv = scene_case(17, 120, 100, outliers=0.0, behind=0.5)
         config = RansacConfig(num_hypotheses=64)
     elif case == "past_shared_keys":
-        from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
-        ml, mr, nv = scene_case(9, load_library().stpu_ransac_shared_keys() + 100, 300)
+        ml, mr, nv = scene_case(9, cuda_ransac.shared_keys() + 100, 300)
         config = RansacConfig(num_hypotheses=64)
     else:
         ml, mr, nv = request_matches(case, 500)
@@ -1002,13 +1001,13 @@ def test_posed_run_pair_launches_the_ransac_kernel_twice(cuda):
     pair, _, _ = _posed_pair()
     cfg = PipelineConfig(matcher=MatcherConfig(block_size=7, max_disparity=80))
     run_pair(pair, cfg, device=cuda)            # captures the pose stage's graphs
-    before = cuda_ransac.LAUNCHES
+    before = LAUNCHES["ransac"]
     res = run_pair(pair, cfg, device=cuda)
-    assert cuda_ransac.LAUNCHES == before + 2
+    assert LAUNCHES["ransac"] == before + 2
     assert res.metrics["pose_ok"] == 1.0
     _, _, _, _, _, F, _ = nonplanar_scene(np.random.default_rng(4), 240, 320)
     run_pair(pair, cfg, fixed_F=F, device=cuda)
-    assert cuda_ransac.LAUNCHES == before + 2
+    assert LAUNCHES["ransac"] == before + 2
 
 
 def test_run_batch_of_four_posed_pairs_launches_the_ransac_kernel_twice(cuda):
@@ -1020,9 +1019,9 @@ def test_run_batch_of_four_posed_pairs_launches_the_ransac_kernel_twice(cuda):
         pairs.append(StereoPair(left, right, K.astype(np.float32), K.astype(np.float32),
                                 name=f"posed{seed}"))
     u = batch_uniforms(BATCH_CONFIG, 4)
-    before = cuda_ransac.LAUNCHES
+    before = LAUNCHES["ransac"]
     res = run_batch(pairs, BATCH_CONFIG, uniforms=u, device=cuda)
-    assert cuda_ransac.LAUNCHES == before + 2
+    assert LAUNCHES["ransac"] == before + 2
     for i, pair in enumerate(pairs):
         one = run_pair(pair, BATCH_CONFIG, device=cuda, uniforms=u[i])
         # test_pose_stage_on_card_matches_cpu's limit
@@ -1057,16 +1056,14 @@ def test_posed_run_pair_past_shared_keys(cuda):
     ``test_pose_stage_on_card_matches_cpu``'s limits."""
     import dataclasses
 
-    from stereo_reconstruction_tpu_torch.kernels.build import load_library
-
     pair, R, T = _posed_pair()
     cfg = PipelineConfig()
-    n = load_library().stpu_ransac_shared_keys() + 100
+    n = cuda_ransac.shared_keys() + 100
     cfg = cfg.replace(frontend=dataclasses.replace(cfg.frontend, max_keypoints=n))
     estimate_pose(pair, cfg, device=cuda)      # captures the pose stage's graphs
-    before = cuda_ransac.LAUNCHES
+    before = LAUNCHES["ransac"]
     got = estimate_pose(pair, cfg, device=cuda)
-    assert cuda_ransac.LAUNCHES == before + 2
+    assert LAUNCHES["ransac"] == before + 2
     want = estimate_pose(pair, cfg, device="cpu")
     assert bool(got.valid) and bool(want.valid)
     np.testing.assert_allclose(got.pose.cpu().numpy()[:3, :3], want.pose.numpy()[:3, :3],

@@ -24,9 +24,9 @@ from stereo_reconstruction_tpu.ops import cost_volume as jcv
 from stereo_reconstruction_tpu.ops import linear_search as jls
 from stereo_reconstruction_tpu.ops import smoothing as jsm
 from stereo_reconstruction_tpu_torch.config import MatcherConfig
+from stereo_reconstruction_tpu_torch.kernels.launch import LAUNCHES
 from stereo_reconstruction_tpu_torch.ops import block_search as tbs
 from stereo_reconstruction_tpu_torch.ops import cost_volume as tcv
-from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
 from stereo_reconstruction_tpu_torch.ops import linear_search as tls
 from stereo_reconstruction_tpu_torch.ops import smoothing as tsm
 
@@ -160,10 +160,10 @@ def test_block_search_right_variant_equals_jax(rng, variant, backend):
     kw = dict(block_size=7, max_disparity=10, **RIGHT_VARIANTS[variant])
     want = np.asarray(jbs.block_search_right(jnp.asarray(left), jnp.asarray(right),
                                              JaxMatcherConfig(**kw)))
-    before = crs.LAUNCHES
+    before = LAUNCHES["K1b"]
     got = tbs.block_search_right(_t(left), _t(right),
                                  MatcherConfig(backend=backend, **kw)).numpy()
-    assert crs.LAUNCHES == before == 0          # the CPU takes K1b's plain twin
+    assert LAUNCHES["K1b"] == before == 0          # the CPU takes K1b's plain twin
     np.testing.assert_array_equal(got, want)
     assert (got[:, :2] == 0).all()              # the black strip
     if variant == "var_block":

@@ -23,6 +23,7 @@ from stereo_reconstruction_tpu import oracle
 from stereo_reconstruction_tpu.config import MatcherConfig as JaxMatcherConfig
 from stereo_reconstruction_tpu.ops.pallas_block_search import pallas_block_search_right
 from stereo_reconstruction_tpu_torch.config import MatcherConfig
+from stereo_reconstruction_tpu_torch.kernels.launch import LAUNCHES
 from stereo_reconstruction_tpu_torch.ops import cuda_block_search as cbs
 
 from test_block_search import _random_stereo
@@ -119,7 +120,7 @@ def test_wrapper_takes_twin_on_cpu_and_counts_no_launch(rng):
     L, R = torch.from_numpy(left), torch.from_numpy(right)
     got = cbs.block_search_fused(L, R, cfg, tile_width=64)
     want = cbs.block_search_fused_plain(L, R, cfg, tile_width=64)
-    assert cbs.LAUNCHES == 0
+    assert LAUNCHES["K3"] == 0
     assert torch.equal(got, want)
 
 

@@ -47,6 +47,7 @@ from stereo_reconstruction_tpu.perceptual import vgg as jvgg
 from stereo_reconstruction_tpu_torch import pipeline as tpipe
 from stereo_reconstruction_tpu_torch.config import PerceptualConfig, from_jax_config
 from stereo_reconstruction_tpu_torch.data.records import StereoPair
+from stereo_reconstruction_tpu_torch.kernels.launch import LAUNCHES
 from stereo_reconstruction_tpu_torch.perceptual import cost as tcost
 from stereo_reconstruction_tpu_torch.perceptual import notebook_oracle as tnb
 from stereo_reconstruction_tpu_torch.perceptual import scan
@@ -365,9 +366,9 @@ def test_windowed_smoother_on_planted_volumes(h, d, w, chunk, ties):
                             specials=ties == "specials")
     want = np.asarray(jcost.windowed_smooth_argmin(
         jnp.asarray(vol), JaxPerceptualConfig(max_disparity=d, chunk=chunk)))
-    launches = scan.LAUNCHES
+    launches = LAUNCHES["K4"]
     got = scan.window_scan(_t(vol), _t(jax_table(d)), chunk).numpy()
-    assert scan.LAUNCHES == launches               # the twin on the CPU, no launch
+    assert LAUNCHES["K4"] == launches               # the twin on the CPU, no launch
     np.testing.assert_array_equal(got, want)
     sizes = np.minimum(d, w - np.arange(w))
     clamps = (want[:, :-1] >= sizes[None, 1:]) & (np.arange(1, w) % chunk != 0)[None]

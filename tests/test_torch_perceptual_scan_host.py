@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from stereo_reconstruction_tpu_torch.kernels import launch
 from stereo_reconstruction_tpu_torch.perceptual import scan
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -77,13 +78,7 @@ def lib(tmp_path_factory):
                     "-pthread", "-I", os.path.join(HERE, "k4_host"), "-x", "c++",
                     str(out / "perceptual_scan.cu"), "-o", str(so)], check=True)
     lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.stpu_perceptual_scan.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.stpu_perceptual_scan.restype = i
-    lib.stpu_perceptual_scan_smem_bytes.argtypes = [i, i]
-    lib.stpu_perceptual_scan_smem_bytes.restype = ctypes.c_longlong
-    lib.stpu_perceptual_scan_scratch_bytes.argtypes = [i, i, i]
-    lib.stpu_perceptual_scan_scratch_bytes.restype = ctypes.c_longlong
+    launch.declare(lib)
     return lib
 
 

@@ -27,13 +27,13 @@ import re
 import shutil
 import subprocess
 import sys
-from functools import partial
 
 import numpy as np
 import pytest
 import torch
 
 from stereo_reconstruction_tpu_torch.config import RansacConfig
+from stereo_reconstruction_tpu_torch.kernels import build, launch
 from stereo_reconstruction_tpu_torch.ops import cuda_ransac
 from stereo_reconstruction_tpu_torch.pose import ransac as pransac
 
@@ -66,23 +66,21 @@ def lib(tmp_path_factory):
                     "-pthread", "-I", os.path.join(HERE, "ransac_host"), "-x", "c++",
                     str(out / "ransac.cu"), "-o", str(so)], check=True)
     lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.stpu_ransac.argtypes = [p, p, ctypes.c_float, ctypes.c_float, p]
-    lib.stpu_ransac.restype = i
-    for name in ("stpu_ransac_max_points", "stpu_ransac_shared_keys", "stpu_ransac_hyp_floats",
-                 "stpu_ransac_hyp_ints"):
-        getattr(lib, name).restype = i
-    return lib
+    launch.declare(lib)
+    # the launcher's entry points call the host build for this module's tests
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(build, "load_library", lambda: lib)
+        yield lib
 
 
-def run_kernel(lib, ml, mr, Kl, Kr, n_valid, u, config):
+def run_kernel(ml, mr, Kl, Kr, n_valid, u, config):
     """The host-built kernel on a batch: (RansacResult with a leading B,
     its scratch)."""
     b, _, n = ml.shape
     out = cuda_ransac.result_buffers((b,), cuda_ransac.support_of(config, n), "cpu")
-    scratch = cuda_ransac.scratch_buffers(lib, b, config, n, "cpu")
-    cuda_ransac.check(ml, mr, Kl, Kr, n_valid, u, config, lib)
-    rc = cuda_ransac.call(lib, *(t.contiguous() for t in (ml, mr, Kl, Kr, n_valid, u)), config,
+    scratch = cuda_ransac.scratch_buffers(b, config, n, "cpu")
+    cuda_ransac.check(ml, mr, Kl, Kr, n_valid, u, config)
+    rc = cuda_ransac.call(*(t.contiguous() for t in (ml, mr, Kl, Kr, n_valid, u)), config,
                           out, scratch, None)
     assert rc == 0, f"host launch refused: {rc}"
     return pransac.RansacResult(*out), scratch
@@ -137,7 +135,7 @@ def truth_angles(pose):
 @pytest.mark.parametrize("name", ["posed_request_matches", "far_winner_request"])
 def test_kernel_source_equals_twin_on_the_fixtures(lib, name):
     ml, mr, nv = request_matches(name, 500)
-    got, _ = compare(partial(run_kernel, lib), ml, mr, nv, RansacConfig())
+    got, _ = compare(run_kernel, ml, mr, nv, RansacConfig())
     assert bool(got.valid[0]) and int(got.inlier_count[0]) == nv
 
 
@@ -147,27 +145,27 @@ def test_kernel_source_equals_twin_on_the_fixtures(lib, name):
 ])
 def test_kernel_source_equals_twin_on_scenes(lib, seed, n, n_valid):
     ml, mr, nv = scene_case(seed, n, n_valid)
-    compare(partial(run_kernel, lib), ml, mr, nv, RansacConfig())
+    compare(run_kernel, ml, mr, nv, RansacConfig())
 
 
 def test_kernel_source_equals_twin_past_shared_keys(lib):
     """More matches than shared memory holds the refits' sort keys for: the
     keys go to the (B, N) scratch."""
-    n = lib.stpu_ransac_shared_keys() + 100
+    n = cuda_ransac.shared_keys() + 100
     ml, mr, nv = scene_case(9, n, 300)
-    compare(partial(run_kernel, lib), ml, mr, nv, RansacConfig(num_hypotheses=64))
+    compare(run_kernel, ml, mr, nv, RansacConfig(num_hypotheses=64))
 
 
 def test_kernel_source_equals_twin_on_duplicated_matches(lib):
     ml, mr, nv = scene_case(8, 300, 240, duplicates=3)
-    compare(partial(run_kernel, lib), ml, mr, nv, RansacConfig())
+    compare(run_kernel, ml, mr, nv, RansacConfig())
 
 
 def test_kernel_source_equals_twin_with_no_valid_hypothesis(lib):
     # half the points behind both cameras: every mixed sample is invalid (this
     # seed draws no sample of one kind alone)
     ml, mr, nv = scene_case(17, 120, 100, outliers=0.0, behind=0.5)
-    got, want = compare(partial(run_kernel, lib), ml, mr, nv, RansacConfig(num_hypotheses=64))
+    got, want = compare(run_kernel, ml, mr, nv, RansacConfig(num_hypotheses=64))
     assert not bool(want.valid) and not bool(got.valid[0])
 
 
@@ -185,7 +183,7 @@ def test_kernel_source_then_ba_poses_the_fixtures(lib, name):
     Kt = torch.from_numpy(K)
     for seed in range(2):
         u = pransac.draw_uniforms(cfg.ransac, 500, torch.Generator().manual_seed(seed))
-        rr, _ = run_kernel(lib, ml[None], mr[None], Kt[None], Kt[None], torch.tensor([nv]),
+        rr, _ = run_kernel(ml[None], mr[None], Kt[None], Kt[None], torch.tensor([nv]),
                            u[None], cfg.ransac)
         rr = pransac.RansacResult(*(x[0] for x in rr))
         est = settle_pose(refine_pose(ml, mr, Kt, Kt, rr, torch.tensor(nv), cfg), Kt, Kt, cfg)
@@ -200,11 +198,11 @@ def test_kernel_source_batch_equals_each_pair_alone(lib):
     u = torch.stack([pransac.draw_uniforms(config, 200, torch.Generator().manual_seed(s))
                      for s in (1, 2)])
     nv = torch.tensor([c[2] for c in cases])
-    both, _ = run_kernel(lib, torch.stack([c[0] for c in cases]),
+    both, _ = run_kernel(torch.stack([c[0] for c in cases]),
                          torch.stack([c[1] for c in cases]), Kt.expand(2, 3, 3),
                          Kt.expand(2, 3, 3), nv, u, config)
     for i, (ml, mr, _) in enumerate(cases):
-        alone, _ = run_kernel(lib, ml[None], mr[None], Kt[None], Kt[None], nv[i:i + 1],
+        alone, _ = run_kernel(ml[None], mr[None], Kt[None], Kt[None], nv[i:i + 1],
                               u[i:i + 1], config)
         for a, b in zip(both, alone):
             assert torch.equal(a[i], b[0])
@@ -225,6 +223,6 @@ def test_launcher_refuses_what_the_kernel_does_not_take(lib):
         (RansacConfig(num_hypotheses=0), (ml[None], mr[None], Kt, Kt, nv, u[:, :0])),
     ]:
         with pytest.raises(ValueError):
-            cuda_ransac.check(*args, config, lib)
+            cuda_ransac.check(*args, config)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_ransac.ransac(ml[None], mr[None], Kt, Kt, nv, u)
+        pransac.ransac_eight_point(ml, mr, Kt[0], Kt[0].to("meta"))

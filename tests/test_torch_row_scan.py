@@ -24,6 +24,7 @@ from stereo_reconstruction_tpu.ops import smoothing as jsm
 from stereo_reconstruction_tpu_torch import pipeline as tpipe
 from stereo_reconstruction_tpu_torch.config import MatcherConfig
 from stereo_reconstruction_tpu_torch.data.records import StereoPair
+from stereo_reconstruction_tpu_torch.kernels.launch import LAUNCHES
 from stereo_reconstruction_tpu_torch.ops import block_search as tbs
 from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
 from stereo_reconstruction_tpu_torch.ops import smoothing as tsm
@@ -140,10 +141,10 @@ def test_chain_planes_hinge_on_the_entering_case():
 def test_row_scan_on_cpu_makes_no_launch():
     cost, black = scan_volume(np.random.default_rng(0), 6, 40, D)
     planes = tsm.volume_reductions(torch.from_numpy(cost), 0)
-    before = crs.LAUNCHES
+    before = LAUNCHES["K1b"]
     got = crs.row_scan(*planes, torch.from_numpy(black), n_planes=D)
     want = tsm.smoothed_argmin_from_inputs(*planes, torch.from_numpy(black), n_planes=D)
-    assert crs.LAUNCHES == before == 0
+    assert LAUNCHES["K1b"] == before == 0
     assert torch.equal(got, want)
 
 

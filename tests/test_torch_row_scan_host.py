@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from stereo_reconstruction_tpu_torch.kernels import launch
+from stereo_reconstruction_tpu_torch.ops import cuda_row_scan  # noqa: F401  (declares K1b's entry points)
 from stereo_reconstruction_tpu_torch.ops import smoothing as tsm
 
 from torch_helpers import chain_planes, scan_volume, seed_rows
@@ -56,9 +58,7 @@ def lib(tmp_path_factory):
                     "-pthread", "-I", os.path.join(HERE, "k1b_host"), "-x", "c++",
                     str(out / "row_scan.cu"), "-o", str(so)], check=True)
     lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.stpu_row_scan.argtypes = [p] * 9 + [i, i, ctypes.c_float, i, i, p]
-    lib.stpu_row_scan.restype = i
+    launch.declare(lib)
     return lib
 
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from stereo_reconstruction_tpu.ops.pallas_cost_volume import pallas_cost_volume_right_ssd
+from stereo_reconstruction_tpu_torch.kernels.launch import LAUNCHES
 from stereo_reconstruction_tpu_torch.ops import block_search as tbs
 from stereo_reconstruction_tpu_torch.ops import cuda_cost_volume as ccv
 from stereo_reconstruction_tpu_torch.config import MatcherConfig
@@ -55,10 +56,10 @@ def test_twin_bit_equal_to_jax_pallas_volume(rng, h, w, extra, min_d, max_d, bs)
 
 def test_wrapper_takes_twin_on_cpu_and_counts_no_launch(rng):
     left, right = _pair(rng, 21, 40, 9)
-    k1, k2 = ccv.LAUNCHES, ccv.VOLUME_LAUNCHES
+    k1, k2 = LAUNCHES["K1"], LAUNCHES["K2"]
     got = ccv.cost_volume(_t(left), _t(right), 5, 2, 12)
     want = ccv.cost_volume_right_ssd(_t(left), _t(right), 5, 2, 12)
-    assert (ccv.LAUNCHES, ccv.VOLUME_LAUNCHES) == (k1, k2) == (0, 0)
+    assert (LAUNCHES["K1"], LAUNCHES["K2"]) == (k1, k2) == (0, 0)
     assert torch.equal(got, want)
 
 

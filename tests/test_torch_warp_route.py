@@ -25,7 +25,7 @@ from torch.func import vmap
 from stereo_reconstruction_tpu_torch import pipeline_batch as tpb
 from stereo_reconstruction_tpu_torch.config import MatcherConfig, PipelineConfig
 from stereo_reconstruction_tpu_torch.data.records import StereoPair
-from stereo_reconstruction_tpu_torch.ops import cuda_warp
+from stereo_reconstruction_tpu_torch.kernels.launch import LAUNCHES
 from stereo_reconstruction_tpu_torch.ops import warp as twarp
 from stereo_reconstruction_tpu_torch.rectify import rectifier as trect
 
@@ -63,12 +63,12 @@ def test_wrapper_takes_the_plain_twin_for_cpu_images(rng, method, channels, dtyp
              else rng.uniform(-20, 20, shape)).astype(dtype)
         imgs.append(torch.from_numpy(a))
     H = _homographies(rng, 3)
-    before = cuda_warp.LAUNCHES
+    before = LAUNCHES["warp"]
     got = twarp.warp_perspective(imgs, H, (36, 44), method)
     hinv = torch.linalg.inv(torch.from_numpy(H).float())
     want = torch.stack([twarp.warp_inverse_map(img, m, (36, 44), method)
                         for img, m in zip(imgs, hinv)])
-    assert cuda_warp.LAUNCHES == before
+    assert LAUNCHES["warp"] == before
     assert got.shape == want.shape == (3, 36, 44, *(() if channels is None else (channels,)))
     assert torch.equal(_bits(got), _bits(want))
     for img, h, g in zip(imgs, H, got):
@@ -107,23 +107,23 @@ def test_singular_homography_raises(rng):
 
 def test_images_off_the_cpu_and_card_raise_before_a_launch():
     imgs = [torch.empty((8, 8, 3), dtype=torch.uint8, device="meta")] * 2
-    before = cuda_warp.LAUNCHES
+    before = LAUNCHES["warp"]
     with pytest.raises(ValueError, match="one CUDA device"):
         twarp.warp_perspective(imgs, np.stack([np.eye(3)] * 2), (8, 8))
     with pytest.raises(ValueError, match="B images"):
         twarp.warp_inverse_maps(imgs, torch.eye(3)[None], (8, 8))
-    assert cuda_warp.LAUNCHES == before
+    assert LAUNCHES["warp"] == before
 
 
 @pytest.mark.parametrize("case", WARP_IMAGE_CASES)
 def test_cpu_route_takes_what_the_twin_takes(rng, case):
     imgs = warp_images(rng, case)
     H = _homographies(rng, 2)
-    before = cuda_warp.LAUNCHES
+    before = LAUNCHES["warp"]
     got = twarp.warp_perspective(imgs, H, (36, 44), "bilinear")
     hinv = torch.linalg.inv(torch.from_numpy(H).float())
     want = torch.stack([twarp.warp_inverse_map(img, m, (36, 44)) for img, m in zip(imgs, hinv)])
-    assert cuda_warp.LAUNCHES == before
+    assert LAUNCHES["warp"] == before
     assert got.dtype == torch.float32 and got.shape == (2, 36, 44, *imgs[0].shape[2:])
     assert torch.equal(_bits(got), _bits(want))
 
