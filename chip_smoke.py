@@ -134,7 +134,7 @@ code 1, no result line) if anything is off:
    of each pair with 8 K1 and 32 K1b launches (one K1 per pair and tile, 4
    seeded passes each), the warm-up mode >= 99.5% equal with 8 + 8;
    ``sharded_evaldisp`` against ``evaldisp``; the distributed BAs on the
-   non-planar scene's BA matches against ``bundle_adjust`` and the
+   non-planar scene's BA matches against ``bundle_adjust_plain`` and the
    per-pair solves; the multi-view BA over the mesh against one device
    (rotations as they are, translations and points up to the scale
    gauge, its factor within 5e-3 of 1) and ``fuse_point_cloud``; and a
@@ -142,16 +142,18 @@ code 1, no result line) if anything is off:
    (``multihost``, a ``file://`` store) running the exact matcher equal
    to the one-process mesh.
 
-``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp ransac]`` times K1,
+``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp ransac ba]`` times K1,
 K1b, K2 and K3 at shape (b), K4 at 375x450 (D=100 and 200, and one strip
 alone), the warp kernel at the fixed-F request's shapes and the RANSAC
-kernel at the posed request's (N = 500, 256 hypotheses), or only the
-kernels named, and prints one JSON line (``time_kernels``).
+and BA kernels at the posed request's (N = 500, 256 hypotheses; 60 points,
+two starts), or only the kernels named, and prints one JSON line
+(``time_kernels``).
 
 Each path (5, 6, 8, 9, 10, 12, 13, 14, 15) runs with every launch count
-(K1 to K4, the warp and RANSAC) set to 0 just before it and read just
+(K1 to K4, the warp, RANSAC and BA) set to 0 just before it and read just
 after: two RANSAC launches a posed ``run_pair`` and a ``run_batch`` shard,
-none a fixed-F request; the
+one BA launch each and one more a further round (``ba_rounds``), none a
+fixed-F request; the
 launches made to compare a kernel with its twin are not counted. The line before the last is ``{"kernels": [...]}``, each
 kernel with its bound (the larger of its bytes over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s, counted for this run's inputs by
@@ -323,6 +325,89 @@ def ransac_times(torch, ml, mr, K, nv, u, cfg):
     with torch.cuda.graph(graph):
         ransac_plain(ml, mr, K, K, cfg, nv, u)
     return kernel_ms, _median_queued_ms(graph.replay, torch, calls=2)
+
+
+def ba_problem(name="posed_request_matches"):
+    """The BA problem of a benchmark request's saved matches, as
+    ``refine_pose`` poses it: RANSAC's twin on the CPU (draws of SEED), then
+    ``select_points``: (observations left and right, K, weights, the two
+    starts' rotations, translations and points), CPU tensors."""
+    import torch
+
+    from stereo_reconstruction_tpu_torch.config import PipelineConfig
+    from stereo_reconstruction_tpu_torch.pose.pipeline import select_points
+    from stereo_reconstruction_tpu_torch.pose.ransac import draw_uniforms, ransac_plain
+
+    cfg = PipelineConfig()
+    ml, mr, nv = request_matches(name, 500)
+    K = torch.tensor(_camera_pair(750, 900)[0], dtype=torch.float32)
+    u = draw_uniforms(cfg.ransac, 500, torch.Generator().manual_seed(SEED))
+    rr = ransac_plain(ml, mr, K, K, cfg.ransac, torch.tensor(nv), u)
+    sel = select_points(ml, mr, K, K, rr, torch.tensor(nv), cfg)
+    return (sel.keypoints_left, sel.keypoints_right, K, sel.weights, sel.rotations,
+            sel.translations, sel.points)
+
+
+def ba_times(torch, kl, kr, K, w, R0, T0, X0, cfg):
+    """(kernel ms, ms of its twin replayed from a CUDA graph, as the pose
+    stage replayed it before the kernel) of BA of one pair's card tensors
+    from its S starts: (3, N) observations, (3, 3) intrinsics, (N,)
+    weights, (S, 3, 3), (S, 3) and (S, 3, N) starts; each queued
+    (``_median_queued_ms``). Its own calls are counted in ``LAUNCHES["ba"]``."""
+    from stereo_reconstruction_tpu_torch.ops import cuda_ba
+    from stereo_reconstruction_tpu_torch.pose.ba import SETTLE_RTOL, SETTLE_WINDOW, \
+        bundle_adjust_plain
+
+    dev, n, s = kl.device, kl.shape[-1], R0.shape[0]
+    args = (kl[None], kr[None], K[None], K[None], w[None], R0[None], T0[None], X0[None])
+    out = cuda_ba.result_buffers((1, s), n, dev)
+    kernel_ms = _median_queued_ms(
+        lambda: cuda_ba.bundle_adjust(*args, cfg, SETTLE_WINDOW, SETTLE_RTOL, out), torch)
+
+    def twin():
+        return [bundle_adjust_plain(kl, kr, K, K, R0[i], T0[i], X0[i], w, cfg)
+                for i in range(s)]
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        twin()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        twin()
+    return kernel_ms, _median_queued_ms(graph.replay, torch, calls=2)
+
+
+class ba_rounds:
+    """The further BA rounds that ``settle_pose`` runs inside the block,
+    eager, under ``vmap`` (one a batch's round) or replayed
+    (``PoseGraphs.step``): ``len(rounds)`` of ``with ba_rounds() as
+    rounds``. Each is one BA launch on the card."""
+
+    def __enter__(self):
+        from stereo_reconstruction_tpu_torch.pose import graphs, pipeline
+
+        self.seen = []
+        self.saved = graphs.PoseGraphs.step, pipeline.ba_round
+        step, one = self.saved
+
+        def counted_step(graph, *args):
+            self.seen.append(1)
+            return step(graph, *args)
+
+        def counted_round(*args, **kwargs):
+            self.seen.append(1)
+            return one(*args, **kwargs)
+
+        graphs.PoseGraphs.step, pipeline.ba_round = counted_step, counted_round
+        return self.seen
+
+    def __exit__(self, *exc):
+        from stereo_reconstruction_tpu_torch.pose import graphs, pipeline
+
+        graphs.PoseGraphs.step, pipeline.ba_round = self.saved
+        return False
 
 
 def request_matches(name, n):
@@ -625,7 +710,7 @@ def _kernel_split(call, torch):
 KERNEL_NAMES = {"K1": "matcher_inputs_kernel", "K1b": "row_scan_kernel",
                 "K2": "cost_volume_kernel", "K3": "block_search_rows_kernel",
                 "K4": "perceptual_scan_kernel", "warp": "warp_kernel",
-                "ransac": "stpu::ransac::"}
+                "ransac": "stpu::ransac::", "ba": "stpu::ba::"}
 
 
 def _profiled_launches(call, torch):
@@ -710,10 +795,12 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
     B = len(pairs)
     u = batch_uniforms(config, B)
     reset_counts()
-    res = run_batch(pairs, config, uniforms=u, device=dev)
-    if counts() != expected(K1=B, K1b=B, warp=2, ransac=2):
-        raise AssertionError(f"run_batch launches {counts()}: want {B} K1, {B} K1b and 2 "
-                             f"warps (the {2 * B} rectifying images, the back-warps)")
+    with ba_rounds() as rounds:
+        res = run_batch(pairs, config, uniforms=u, device=dev)
+    if counts() != expected(K1=B, K1b=B, warp=2, ransac=2, ba=1 + len(rounds)):
+        raise AssertionError(f"run_batch launches {counts()}: want {B} K1, {B} K1b, 2 "
+                             f"warps (the {2 * B} rectifying images, the back-warps), 2 "
+                             f"RANSAC and 1 + {len(rounds)} BA (its first round, each further)")
     launches = {"K1": counts()["K1"], "K1b": counts()["K1b"]}
     padded = (B, h + (-h) % 8, w + (-w) % 128)
     if res.disparity.shape != padded or not np.isfinite(res.disparity).all():
@@ -731,10 +818,11 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
         if not m["bad_percent"] < MAX_TOTAL_BAD:
             raise AssertionError(f"run_batch pair {i}: {m}")
     reset_counts()
-    plain = run_batch(pairs, config.replace(matcher=dataclasses.replace(config.matcher,
-                                                                        backend="xla")),
-                      uniforms=u, device=dev)
-    if counts() != expected(warp=2, ransac=2):
+    with ba_rounds() as rounds:
+        plain = run_batch(pairs, config.replace(matcher=dataclasses.replace(config.matcher,
+                                                                            backend="xla")),
+                          uniforms=u, device=dev)
+    if counts() != expected(warp=2, ransac=2, ba=1 + len(rounds)):
         raise AssertionError(f"plain run_batch launched matcher kernels: {counts()}")
     agree_plain = [float(np.mean(res.disparity[i] == plain.disparity[i])) for i in range(B)]
     agree_one = [float(np.mean(res.disparity[i] == run_batch(
@@ -750,11 +838,12 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
           f"the degenerate pair {[round(a, 6) for a in agree_unmasked]}", flush=True)
     if min(agree_plain + agree_one + agree_unmasked) < 0.995:
         raise AssertionError("run_batch disparity agreement below 99.5%")
-    seen, n_kernels, device_ms = _profiled_launches(
-        lambda: run_batch(pairs, config, uniforms=u, device=dev), torch)
+    with ba_rounds() as rounds:
+        seen, n_kernels, device_ms = _profiled_launches(
+            lambda: run_batch(pairs, config, uniforms=u, device=dev), torch)
     if seen is None:
         raise AssertionError("the profiler saw no device work in run_batch")
-    if seen != expected(K1=B, K1b=B, warp=2, ransac=2):
+    if seen != expected(K1=B, K1b=B, warp=2, ransac=2, ba=1 + len(rounds)):
         raise AssertionError(f"the profiler saw {seen} in run_batch: want {B} K1, "
                              f"{B} K1b and 2 warps")
     print(f"[batch] torch.profiler in run_batch B={B}: {seen}; {n_kernels} device "
@@ -763,8 +852,9 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
     # the batch over a mesh's data axis: two shards of two pairs, both on dev
     mesh = make_mesh(data=2, tile=1, devices=[dev, dev])
     reset_counts()
-    sharded = run_batch(pairs, config, uniforms=u, mesh=mesh)
-    if counts() != expected(K1=B, K1b=B, warp=4, ransac=4):
+    with ba_rounds() as rounds:
+        sharded = run_batch(pairs, config, uniforms=u, mesh=mesh)
+    if counts() != expected(K1=B, K1b=B, warp=4, ransac=4, ba=2 + len(rounds)):
         raise AssertionError(f"run_batch(mesh=) launches {counts()}: want {B} K1, {B} K1b "
                              f"and 2 warps a shard")
     if sharded.disparity.shape != padded or not np.isfinite(sharded.disparity).all():
@@ -792,18 +882,20 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
           f"agreement with the unsharded B={B} {[round(a, 6) for a in agree_mesh]}", flush=True)
     if min(agree_mesh) < 0.995:
         raise AssertionError("run_batch(mesh=) agreement with the unsharded run below 99.5%")
-    seen, n_kernels, device_ms = _profiled_launches(
-        lambda: run_batch(pairs, config, uniforms=u, mesh=mesh), torch)
+    with ba_rounds() as rounds:
+        seen, n_kernels, device_ms = _profiled_launches(
+            lambda: run_batch(pairs, config, uniforms=u, mesh=mesh), torch)
     if seen is None:
         raise AssertionError("the profiler saw no device work in run_batch(mesh=)")
-    if seen != expected(K1=B, K1b=B, warp=4, ransac=4):
+    if seen != expected(K1=B, K1b=B, warp=4, ransac=4, ba=2 + len(rounds)):
         raise AssertionError(f"the profiler saw {seen} in run_batch(mesh=): want {B} K1, "
                              f"{B} K1b and 4 warps")
     print(f"[batch] torch.profiler in run_batch(mesh=) B={B}: {seen}; {n_kernels} device "
           f"kernels in all, {device_ms:.1f} ms device time", flush=True)
     reset_counts()
-    piped = run_batches([pairs, pairs], config, mesh=mesh)
-    if counts() != expected(K1=2 * B, K1b=2 * B, warp=8, ransac=8):
+    with ba_rounds() as rounds:
+        piped = run_batches([pairs, pairs], config, mesh=mesh)
+    if counts() != expected(K1=2 * B, K1b=2 * B, warp=8, ransac=8, ba=4 + len(rounds)):
         raise AssertionError(f"run_batches(mesh=) launches {counts()}: want {2 * B} K1 and "
                              f"K1b, 8 warps")
     _same_batch_result(piped[0], sharded, "run_batches(mesh=) batch 0 vs run_batch(mesh=)")
@@ -973,8 +1065,9 @@ def variants_phase(torch, dev, smi, rect, pair, F, batch_pair, counts, reset_cou
             raise AssertionError(f"[variants] run_pair {cost}: {m}")
     config = base.replace(matcher=MatcherConfig(cost="ncc"))
     reset_counts()
-    res = run_batch([batch_pair], config, uniforms=batch_uniforms(config, 1), device=dev)
-    if counts() != expected(K1b=1, warp=2, ransac=2) or not res.pose_ok[0]:
+    with ba_rounds() as rounds:
+        res = run_batch([batch_pair], config, uniforms=batch_uniforms(config, 1), device=dev)
+    if counts() != expected(K1b=1, warp=2, ransac=2, ba=1 + len(rounds)) or not res.pose_ok[0]:
         raise AssertionError(f"[variants] run_batch ncc: launches {counts()}, "
                              f"{res.metrics}")
     if not res.metrics[0]["bad_percent"] < MAX_TOTAL_BAD:
@@ -1349,7 +1442,7 @@ def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=140
         ba_multiview, distributed_bundle_adjust, distributed_bundle_adjust_batch,
         make_mesh, multihost, sharded_block_search_right, sharded_evaldisp)
     from stereo_reconstruction_tpu_torch.pipeline import estimate_pose
-    from stereo_reconstruction_tpu_torch.pose.ba import bundle_adjust
+    from stereo_reconstruction_tpu_torch.pose.ba import bundle_adjust_plain
     from stereo_reconstruction_tpu_torch.utils.roofline import matcher_bound, scan_bound
 
     t_phase = time.perf_counter()
@@ -1569,7 +1662,8 @@ def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=140
     R0, T0 = problems[0]
     res_d = distributed_bundle_adjust(kp_l, kp_r, Kt, Kt, R0, T0, pts0, mesh, weights=wts,
                                       config=bcfg)
-    res_s = bundle_adjust(kp_l, kp_r, Kt, Kt, R0, T0, pts0, weights=wts, config=bcfg)
+    # the single-device LM in plain PyTorch, as the distributed one is
+    res_s = bundle_adjust_plain(kp_l, kp_r, Kt, Kt, R0, T0, pts0, weights=wts, config=bcfg)
     d_rot = float((res_d.rotation - res_s.rotation).abs().max())
     d_t = float((res_d.translation - res_s.translation).abs().max())
     c_d, c_s = float(res_d.final_cost), float(res_s.final_cost)
@@ -1592,7 +1686,7 @@ def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=140
     if d_batch > 2e-3:
         raise AssertionError(f"BA batch poses {d_batch} from the per-pair solves")
     print(f"[sharded] distributed_bundle_adjust on the non-planar scene's 64 BA matches "
-          f"({int(wts.sum())} real) vs bundle_adjust: rotation {d_rot:.2e}, translation "
+          f"({int(wts.sum())} real) vs bundle_adjust_plain: rotation {d_rot:.2e}, translation "
           f"{d_t:.2e}, final cost {c_d:.5f} vs {c_s:.5f}; the batch of {B} (one (B, 42) "
           f"psum a step) within {d_batch:.2e} of per-pair solves, costs "
           f"{float(c0.max()):.1f} -> {float(cf.max()):.5f} at most", flush=True)
@@ -1653,7 +1747,7 @@ def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=140
 
 
 def time_kernels(only=()) -> int:
-    """``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp ransac]``: K1,
+    """``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp ransac ba]``: K1,
     K1b, K2 and K3 at shape (b) on the integer-valued pair, and K1b seeded on the
     exact sharded matcher's 282-row tile of it (``K1b_tile``); K4 on a
     planted ``perceptual_volume`` at 375x450, D=100, chunk 20, one 20-column
@@ -1668,7 +1762,10 @@ def time_kernels(only=()) -> int:
     (``tests/data/posed_request_matches.npz``, 222 valid, padded to N = 500)
     with 256 hypotheses (``ransac``), beside its twin replayed from a CUDA
     graph as the pose stage replayed it before the kernel
-    (``ransac_plain_graph``), queued the same way. Names given:
+    (``ransac_plain_graph``), queued the same way; the BA kernel (one
+    launch) on the BA problem of the same request (``ba_problem``: 60
+    points, both starts, 20 steps; ``ba``) beside its twin replayed from a
+    CUDA graph (``ba_plain_graph``), queued the same way. Names given:
     only those kernels. CUDA events, median of REPEATS over CALLS back-to-back calls
     (K3 one call a sample), as one JSON line. It uses only arguments the
     wrappers have taken since seeded rows came in, so a copy of this file
@@ -1687,7 +1784,7 @@ def time_kernels(only=()) -> int:
     from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
     from stereo_reconstruction_tpu_torch.perceptual import scan as pscan
 
-    only = set(only) or {"K1", "K1b", "K2", "K3", "K4", "warp", "ransac"}
+    only = set(only) or {"K1", "K1b", "K2", "K3", "K4", "warp", "ransac", "ba"}
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1768,11 +1865,20 @@ def time_kernels(only=()) -> int:
         u = draw_uniforms(cfg, 500, torch.Generator().manual_seed(SEED)).to(dev)
         ms["ransac"], ms["ransac_plain_graph"] = ransac_times(torch, ml, mr, K, nv, u, cfg)
         bounds["ransac"] = ransac_bound(500)
+    if "ba" in only:
+        from stereo_reconstruction_tpu_torch.config import BundleAdjustmentConfig
+        from stereo_reconstruction_tpu_torch.utils.roofline import ba_bound
+
+        cfg = BundleAdjustmentConfig()
+        problem = [t.to(dev) for t in ba_problem()]
+        ms["ba"], ms["ba_plain_graph"] = ba_times(torch, *problem, cfg)
+        bounds["ba"] = ba_bound(cfg.num_points, cfg.max_iterations, 2)
     print(json.dumps({"card": smi, "checkout": os.path.dirname(os.path.abspath(__file__)),
                       "shape": "(b) 1128x1408, D=200, block 17; K4 375x450, chunk 20 "
                                "(394 diagonals a strip); warp 750x900x3 uint8 x 2 -> "
                                "1128x1408, 1128x1408 float32 -> 750x900; RANSAC N=500, "
-                               "256 hypotheses of 8, 2 refits on 16", "ms": ms,
+                               "256 hypotheses of 8, 2 refits on 16; BA 60 points, 2 starts, "
+                               "20 steps", "ms": ms,
                       "bound_ms": bounds}))
     return 0
 
@@ -1813,7 +1919,8 @@ def main() -> int:
         LAUNCHES.clear()
 
     def expected(**k):
-        return {"K1": 0, "K1b": 0, "K2": 0, "K3": 0, "K4": 0, "warp": 0, "ransac": 0, **k}
+        return {"K1": 0, "K1b": 0, "K2": 0, "K3": 0, "K4": 0, "warp": 0, "ransac": 0, "ba": 0,
+                **k}
 
     def counts():
         return {kernel: LAUNCHES[kernel] for kernel in expected()}
@@ -1842,7 +1949,8 @@ def main() -> int:
         "c": dict(h=21, w=40, wl_extra=9, bs=5, min_d=2, max_d=12),
         "d": dict(h=101, w=200, wl_extra=0, bs=9, min_d=1, max_d=31),
     }
-    max_err = {"K1": 0.0, "K1b": 0.0, "K2": 0.0, "K3": 0.0, "warp": 0.0, "ransac": 0.0}
+    max_err = {"K1": 0.0, "K1b": 0.0, "K2": 0.0, "K3": 0.0, "warp": 0.0, "ransac": 0.0,
+               "ba": 0.0}
     times = {}
     bounds = {}
     for key, s in shapes.items():
@@ -2213,12 +2321,16 @@ def main() -> int:
                       disp_right_gt=gt, mask_right_nocc=mask, name="nonplanar")
     with tempfile.TemporaryDirectory() as tmp:
         reset_counts()
-        res = run_pair(pair, config, output_dir=tmp, write_mesh=True, device=dev)
+        with ba_rounds() as rounds:
+            res = run_pair(pair, config, output_dir=tmp, write_mesh=True, device=dev)
         # the first posed call captures the pose stage's graphs, launching
-        # RANSAC once more to feed the refine graph's capture (pose/graphs.py)
-        if counts() != expected(K1=1, K1b=1, warp=2, ransac=4):
+        # RANSAC once more to feed the select graph's capture, and BA twice
+        # more to feed the choose and round graphs' (pose/graphs.py)
+        if counts() != expected(K1=1, K1b=1, warp=2, ransac=4, ba=3 + len(rounds)):
             raise AssertionError(f"run_pair() launches {counts()}: want one K1, one K1b, "
-                                 f"two warps and four RANSAC (two and the capture's two)")
+                                 f"two warps, four RANSAC (two and the capture's two) and "
+                                 f"3 + {len(rounds)} BA (one, the capture's two, each "
+                                 f"further round)")
         pose = res.pose
         P = pose.pose.cpu().numpy()
         rot, trans = pose_angles(P, R_true, T_true)
@@ -2251,10 +2363,11 @@ def main() -> int:
     runs = []
     for _ in range(3):
         reset_counts()
-        r = run_pair(pair, config, device=dev)
-        if counts() != expected(K1=1, K1b=1, warp=2, ransac=2):
+        with ba_rounds() as rounds:
+            r = run_pair(pair, config, device=dev)
+        if counts() != expected(K1=1, K1b=1, warp=2, ransac=2, ba=1 + len(rounds)):
             raise AssertionError(f"run_pair() launches {counts()}")
-        launches["ransac"] = counts()["ransac"]
+        launches["ransac"], launches["ba"] = counts()["ransac"], counts()["ba"]
         if not torch.equal(r.pose.pose, pose.pose):
             raise AssertionError("run_pair() pose is not deterministic")
         runs.append(r.timings)
@@ -2295,6 +2408,29 @@ def main() -> int:
           + f"; result max |err| {max_err['ransac']:.3g}; kernel "
           f"{times['ransac', 'pose'][0]:.4f} ms, twin's graph {times['ransac', 'pose'][1]:.2f} "
           f"ms, bound {bounds['ransac', 'pose'][0] * 1e3:.4f} us (median of {REPEATS}, queued)",
+          flush=True)
+    # the BA kernel on the problem this run's RANSAC result poses, from both
+    # starts, against its pinned twin
+    from ba_twin import card_kernel as card_ba_kernel, compare as compare_ba
+    from stereo_reconstruction_tpu_torch.pose.pipeline import select_points
+    from stereo_reconstruction_tpu_torch.pose.ransac import RansacResult
+    from stereo_reconstruction_tpu_torch.utils.roofline import ba_bound
+
+    sel = select_points(ml, mr, Kd, Kd, RansacResult(*(x[0].to(dev) for x in got)), nv,
+                        config)
+    problem = (sel.keypoints_left, sel.keypoints_right, Kd, sel.weights, sel.rotations,
+               sel.translations, sel.points)
+    got_ba, want_ba = compare_ba(card_ba_kernel, *problem[:3], *problem[2:], config.ba, dev)
+    max_err["ba"] = max(_max_abs_err(getattr(got_ba, f), getattr(want_ba, f))
+                        for f in got_ba._fields if getattr(want_ba, f).dtype.is_floating_point)
+    times["ba", "pose_ba"] = ba_times(torch, *problem, config.ba)
+    bounds["ba", "pose_ba"] = ba_bound(config.ba.num_points, config.ba.max_iterations, 2)
+    print(f"[pose] {smi}: BA kernel on the run's problem ({int(sel.weights.sum())} of "
+          f"{config.ba.num_points} points real, 2 starts, {config.ba.max_iterations} steps): its "
+          f"pinned twin's bits, final costs {got_ba.final_cost.tolist()}, converged "
+          f"{got_ba.converged.tolist()}; kernel {times['ba', 'pose_ba'][0]:.4f} ms, twin's "
+          f"graph {times['ba', 'pose_ba'][1]:.2f} ms, bound "
+          f"{bounds['ba', 'pose_ba'][0] * 1e3:.4f} us (median of {REPEATS}, queued)",
           flush=True)
     print(f"[pose] {smi}: run_pair() stage ms (median of 3 after the first run): "
           + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
@@ -2354,12 +2490,15 @@ def main() -> int:
          "stereo_reconstruction_tpu/ops/warp.py:41", ("warp", "back")),
         ("ransac", "RANSAC: hypotheses, scores, winner and refits", csrc + "ransac.cuh",
          None, ("ransac", "pose")),       # not a TPU kernel: JAX's RANSAC is plain jnp
+        ("ba", "bundle adjustment: every LM step of both starts", csrc + "ba.cuh",
+         None, ("ba", "pose_ba")),        # not a TPU kernel: JAX's BA is plain jnp
     ]
     at = {"b": "1128x1408 canvas, D=200, block 17", "canvas": "1128x1408 canvas, D=200, block 17",
           "scene": "375x450, D=100, window 17, chunk 20 (the windowed volume)",
           "rectify": "both uint8 750x900x3 images -> 1128x1408 canvas, bilinear, one launch",
           "back": "1128x1408 float32 disparity -> 750x900, nearest",
-          "pose": "the posed run_pair's 500 matches, 256 hypotheses of 8, 2 refits on 16"}
+          "pose": "the posed run_pair's 500 matches, 256 hypotheses of 8, 2 refits on 16",
+          "pose_ba": "the posed run_pair's BA problem: 60 points, 2 starts, 20 LM steps"}
     print(json.dumps({"kernels": [{
         "name": f"{k} {name}",
         "route": "cuda",

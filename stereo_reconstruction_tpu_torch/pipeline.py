@@ -35,11 +35,12 @@ from stereo_reconstruction_tpu_torch.ops.matching import match_descriptors, vali
 from stereo_reconstruction_tpu_torch.perceptual import perceptual_window_search, vgg_module
 from stereo_reconstruction_tpu_torch.pose.pipeline import (
     PoseEstimate,
+    check_kernel_config,
     estimate_pose_from_matches,
     settle_pose,
 )
 from stereo_reconstruction_tpu_torch.pose.graphs import pose_graphs
-from stereo_reconstruction_tpu_torch.pose.ransac import check_kernel_config, draw_uniforms
+from stereo_reconstruction_tpu_torch.pose.ransac import draw_uniforms
 from stereo_reconstruction_tpu_torch.recon.backproject import backproject
 from stereo_reconstruction_tpu_torch.recon.disparity import (
     disparity_to_depth,
@@ -95,7 +96,7 @@ def pose_device(images: torch.Tensor, K_left: torch.Tensor, K_right: torch.Tenso
     ``BA_ROUNDS`` rounds while it has not converged (JAX: one;
     ``pose/pipeline.py::settle_pose``). On the card the stages after SIFT
     replay CUDA graphs (``pose/graphs.py``), with the same result."""
-    check_kernel_config(config.ransac, config.frontend.max_keypoints, images.device)
+    check_kernel_config(config, images.device)
     with span("pose.features"):
         kp = detect_and_describe_batch(images, config.frontend)
     if images.device.type == "cuda":

@@ -77,8 +77,9 @@ from stereo_reconstruction_tpu_torch.parallel.mesh import Mesh
 from stereo_reconstruction_tpu_torch.parallel.multihost import ProcessGroupMesh
 from stereo_reconstruction_tpu_torch.pipeline import _device, compute_disparity, \
     pose_from_keypoints
-from stereo_reconstruction_tpu_torch.pose.pipeline import PoseEstimate, settle_pose
-from stereo_reconstruction_tpu_torch.pose.ransac import check_kernel_config, draw_uniforms
+from stereo_reconstruction_tpu_torch.pose.pipeline import PoseEstimate, check_kernel_config, \
+    settle_pose
+from stereo_reconstruction_tpu_torch.pose.ransac import draw_uniforms
 from stereo_reconstruction_tpu_torch.recon.disparity import (
     disparity_to_depth,
     remove_disparity_outliers,
@@ -128,7 +129,7 @@ def _pose_dispatch(left, right, K_left, K_right, uniforms, config) -> PoseEstima
     """One detector batch of 2B images, then ``pipeline.pose_from_keypoints``
     under ``torch.func.vmap``: queued with no host sync."""
     B = left.shape[0]
-    check_kernel_config(config.ransac, config.frontend.max_keypoints, left.device)
+    check_kernel_config(config, left.device)
     kp = detect_and_describe_batch(torch.cat([left, right]), config.frontend)
     kp_l = Keypoints(*(x[:B] for x in kp))
     kp_r = Keypoints(*(x[B:] for x in kp))

@@ -12,17 +12,26 @@ loop never waits on the device. ``converged`` says whether the cost
 settled over the last ``SETTLE_WINDOW`` steps; from a start a few degrees
 off, LM alternates accepted and rejected steps and can still be descending
 after 20 (``pose.pipeline.settle_pose`` continues it there).
+
+On the card the whole solve is the hand-written kernel (``csrc/ba.cuh``,
+launched by ``ops/cuda_ba.py``): one launch for every start of a problem
+(``bundle_adjust_starts``), a batch's under ``torch.func.vmap`` too, in
+place of the ~21,800 small ops of ``bundle_adjust_plain``, its plain twin,
+which CPU tensors take. Nothing falls back: a CUDA input the kernel does
+not take raises, and ``pose.pipeline.check_kernel_config`` lets a caller
+raise before SIFT.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 from torch.func import jacfwd, vmap
 
 from stereo_reconstruction_tpu_torch.config import BundleAdjustmentConfig
-from stereo_reconstruction_tpu_torch.ops import geometry as geo
+from stereo_reconstruction_tpu_torch.kernels.launch import on_card
+from stereo_reconstruction_tpu_torch.ops import cuda_ba, geometry as geo
 from stereo_reconstruction_tpu_torch.ops import small_linalg
 from stereo_reconstruction_tpu_torch.pose.eight_point import pose_matrix
 
@@ -67,6 +76,54 @@ def bundle_adjust(
     weights: Optional[torch.Tensor] = None,   # (N,) 0/1 mask of real points
     config: BundleAdjustmentConfig = BundleAdjustmentConfig(),
 ) -> BAResult:
+    """Tensors on one CUDA device: the kernel (``ops/cuda_ba.py``, one
+    launch); on the CPU: ``bundle_adjust_plain``."""
+    return bundle_adjust_starts(matches_left, matches_right, K_left, K_right,
+                                init_rotation[None], init_translation[None], init_points[None],
+                                weights, config)[0]
+
+
+def bundle_adjust_starts(matches_left, matches_right, K_left, K_right,
+                         init_rotations: torch.Tensor,     # (S, 3, 3)
+                         init_translations: torch.Tensor,  # (S, 3)
+                         init_points: torch.Tensor,        # (S, 3, N)
+                         weights: Optional[torch.Tensor] = None,
+                         config: BundleAdjustmentConfig = BundleAdjustmentConfig(),
+                         ) -> List[BAResult]:
+    """``bundle_adjust`` of one problem from each of S starts: on one CUDA
+    device one launch for all of them (a batch's under ``torch.func.vmap``
+    too); on the CPU ``bundle_adjust_plain`` from each in turn."""
+    card = on_card("ba", matches_left, matches_right, K_left, K_right, init_rotations,
+                   init_translations, init_points, weights)
+    starts = init_rotations.shape[0]
+    if not card:
+        return [bundle_adjust_plain(matches_left, matches_right, K_left, K_right,
+                                    init_rotations[s], init_translations[s], init_points[s],
+                                    weights, config) for s in range(starts)]
+    n = matches_left.shape[-1]
+    w = (torch.ones(n, device=matches_left.device) if weights is None
+         else weights.to(torch.float32))
+    out = cuda_ba.bundle_adjust_op(
+        matches_left, matches_right, K_left, K_right, w, init_rotations, init_translations,
+        init_points, config.max_iterations, config.loss, float(config.huber_delta),
+        float(config.init_lambda), float(config.lambda_up), float(config.lambda_down),
+        float(config.min_lambda), float(config.max_lambda), SETTLE_WINDOW, SETTLE_RTOL)
+    return [BAResult(*(x[s] for x in out)) for s in range(starts)]
+
+
+def bundle_adjust_plain(
+    matches_left: torch.Tensor,      # (3, N) homogeneous pixels
+    matches_right: torch.Tensor,     # (3, N)
+    K_left: torch.Tensor,
+    K_right: torch.Tensor,
+    init_rotation: torch.Tensor,     # (3, 3)
+    init_translation: torch.Tensor,  # (3,)
+    init_points: torch.Tensor,       # (3, N) initial 3D points (left frame)
+    weights: Optional[torch.Tensor] = None,   # (N,) 0/1 mask of real points
+    config: BundleAdjustmentConfig = BundleAdjustmentConfig(),
+) -> BAResult:
+    """The kernel's plain twin, on the inputs' device: ``max_iterations``
+    LM steps from the start, with no host sync."""
     device = matches_left.device
     n = matches_left.shape[-1]
     w = (torch.ones(n, device=device) if weights is None

@@ -20,8 +20,9 @@ front, ``n_valid`` staying a tensor throughout:
 
 ``estimate_pose_from_matches`` (step 1, then ``refine_pose``: steps 2-4)
 runs one BA round of ``ba.max_iterations`` steps with no host sync, so
-``torch.func.vmap`` batches it and a CUDA graph records it
-(``pose/graphs.py``). The callers that read the pose
+``torch.func.vmap`` batches it and CUDA graphs record the steps around BA
+(``pose/graphs.py``); on the card both of its BAs are one launch of the
+BA kernel (``pose/ba.py::bundle_adjust_starts``). The callers that read the pose
 (``pipeline.pose_device``, ``pipeline_batch``) then ``settle_pose``:
 further rounds (``ba_round``), outside the vmapped body, while a pose's
 BA has not converged (``pose/ba.py``), up to ``BA_ROUNDS`` in all. JAX
@@ -37,8 +38,8 @@ import torch
 from torch.func import vmap
 
 from stereo_reconstruction_tpu_torch.config import PipelineConfig
-from stereo_reconstruction_tpu_torch.ops import geometry as geo
-from stereo_reconstruction_tpu_torch.pose.ba import BAResult, bundle_adjust
+from stereo_reconstruction_tpu_torch.ops import cuda_ba, cuda_ransac, geometry as geo
+from stereo_reconstruction_tpu_torch.pose.ba import BAResult, bundle_adjust, bundle_adjust_starts
 from stereo_reconstruction_tpu_torch.pose.ransac import RansacResult, match_fit, ransac_eight_point
 from stereo_reconstruction_tpu_torch.utils.profiling import span
 
@@ -73,6 +74,28 @@ BA_ROUNDS = 6
 BA_FIT_SLACK = 0.25
 
 
+class Selection(NamedTuple):
+    """``refine_pose``'s BA problem: its points and its two starts."""
+    keypoints_left: torch.Tensor   # (3, M) the BA support set (padded)
+    keypoints_right: torch.Tensor  # (3, M)
+    weights: torch.Tensor          # (M,) 1 = real point, 0 = padding
+    rotations: torch.Tensor        # (2, 3, 3) RANSAC's winner's, its best fitting one's
+    translations: torch.Tensor     # (2, 3)
+    points: torch.Tensor           # (2, 3, M) the points triangulated under each
+    num_survivors: torch.Tensor    # () filtered survivor count
+    n_unique: torch.Tensor         # () unique valid match columns
+
+
+def check_kernel_config(config: PipelineConfig, device) -> None:
+    """Raise ValueError where the card's kernels do not take ``config``:
+    RANSAC on ``max_keypoints`` matches (``cuda_ransac.check_config``) and
+    BA (``cuda_ba.check_config``); nothing for the CPU. The posed paths call
+    it before SIFT."""
+    if torch.device(device).type == "cuda":
+        cuda_ransac.check_config(config.ransac, config.frontend.max_keypoints)
+        cuda_ba.check_config(config.ba)
+
+
 def estimate_pose_from_matches(
     matches_left: torch.Tensor,    # (3, N) homogeneous pixel coords
     matches_right: torch.Tensor,   # (3, N)
@@ -97,8 +120,23 @@ def estimate_pose_from_matches(
 def refine_pose(matches_left: torch.Tensor, matches_right: torch.Tensor,
                 K_left: torch.Tensor, K_right: torch.Tensor, rr: RansacResult,
                 n_valid: torch.Tensor, config: PipelineConfig) -> PoseEstimate:
-    """Steps 2-4 from RANSAC's result ``rr``: the outlier filter, one BA
-    round and both reprojection errors, with no host sync."""
+    """Steps 2-4 from RANSAC's result ``rr``: the outlier filter
+    (``select_points``), one BA round from each of two starts (on the card
+    one launch) and the choice between them with both reprojection errors
+    (``choose_pose``), with no host sync."""
+    sel = select_points(matches_left, matches_right, K_left, K_right, rr, n_valid, config)
+    solves = bundle_adjust_starts(sel.keypoints_left, sel.keypoints_right, K_left, K_right,
+                                  sel.rotations, sel.translations, sel.points, sel.weights,
+                                  config.ba)
+    return choose_pose(matches_left, matches_right, K_left, K_right, rr, n_valid, sel,
+                       *solves, config)
+
+
+def select_points(matches_left: torch.Tensor, matches_right: torch.Tensor,
+                  K_left: torch.Tensor, K_right: torch.Tensor, rr: RansacResult,
+                  n_valid: torch.Tensor, config: PipelineConfig) -> Selection:
+    """Steps 2-3: all matches triangulated under RANSAC's pose and filtered,
+    the first ``ba.num_points`` survivors, and BA's two starts on them."""
     device = matches_left.device
     n = matches_left.shape[-1]
     m = config.ba.num_points
@@ -139,24 +177,33 @@ def refine_pose(matches_left: torch.Tensor, matches_right: torch.Tensor,
     kp_r = torch.where(real, matches_right[:, sel],
                        geo.project(K_right, geo.transform(R, T, dummy)))
 
-    result = bundle_adjust(kp_l, kp_r, K_left, K_right, R, T, pts0,
-                           weights=weights, config=config.ba)
     # BA fits its M points only: from a far RANSAC winner it can settle where
     # they fit and the other matches do not. So BA also runs on the same
-    # points from RANSAC's best fitting hypothesis, and that pose is taken
-    # where it fits the valid matches better by more than BA_FIT_SLACK
+    # points from RANSAC's best fitting hypothesis (``choose_pose``)
     R_fit, T_fit = rr.fit_pose[:3, :3], rr.fit_pose[:3, 3]
     pts_fit = xl * geo.triangulate_depths(xl, xr, R_fit, T_fit)[None, :]
-    other = bundle_adjust(kp_l, kp_r, K_left, K_right, R_fit, T_fit,
-                          torch.where(real, pts_fit[:, sel], dummy), weights=weights,
-                          config=config.ba)
+    return Selection(kp_l, kp_r, weights, torch.stack([R, R_fit]), torch.stack([T, T_fit]),
+                     torch.stack([pts0, torch.where(real, pts_fit[:, sel], dummy)]),
+                     num_survivors, n_unique)
+
+
+def choose_pose(matches_left: torch.Tensor, matches_right: torch.Tensor,
+                K_left: torch.Tensor, K_right: torch.Tensor, rr: RansacResult,
+                n_valid: torch.Tensor, sel: Selection, result: BAResult, other: BAResult,
+                config: PipelineConfig) -> PoseEstimate:
+    """Step 4 from BA's solves from RANSAC's winner (``result``) and from
+    its best fitting hypothesis (``other``): the second is taken where it
+    fits the valid matches better by more than ``BA_FIT_SLACK``; both
+    stages' reprojection errors."""
+    kp_l, kp_r, weights = sel.keypoints_left, sel.keypoints_right, sel.weights
+    m = config.ba.num_points
     threshold = config.ransac.error_threshold
     better = (match_fit(other.fundamental, matches_left, matches_right, n_valid, threshold)
               < match_fit(result.fundamental, matches_left, matches_right, n_valid, threshold)
               - BA_FIT_SLACK)
     result = BAResult(*(torch.where(better, b, a) for a, b in zip(result, other)))
-    err_8pt = _masked_reconstruction_error(kp_l, kp_r, K_left, K_right, R, T, pts0,
-                                           weights)
+    err_8pt = _masked_reconstruction_error(kp_l, kp_r, K_left, K_right, rr.rotation,
+                                           rr.translation, sel.points[0], weights)
     err_ba = _masked_reconstruction_error(kp_l, kp_r, K_left, K_right, result.rotation,
                                           result.translation, result.points, weights)
     return PoseEstimate(
@@ -168,12 +215,12 @@ def refine_pose(matches_left: torch.Tensor, matches_right: torch.Tensor,
         weights=weights,
         reproj_error_8pt=err_8pt,
         reproj_error_ba=err_ba,
-        num_inliers=num_survivors,
-        enough_points=num_survivors >= m,
+        num_inliers=sel.num_survivors,
+        enough_points=sel.num_survivors >= m,
         # non-finite reprojection errors (degenerate triangulation, diverged
         # BA) or fewer than 8 unique matches make the pose invalid
         valid=rr.valid & torch.isfinite(err_8pt) & torch.isfinite(err_ba)
-        & (n_unique >= 8),
+        & (sel.n_unique >= 8),
         points=result.points,
         ba_converged=result.converged,
     )
@@ -185,6 +232,12 @@ def ba_round(kp_left, kp_right, K_left, K_right, pose, points, weights,
     and ``points``: (pose, F, points, BA reprojection error, converged)."""
     r = bundle_adjust(kp_left, kp_right, K_left, K_right, pose[:3, :3], pose[:3, 3], points,
                       weights=weights, config=config.ba)
+    return round_result(kp_left, kp_right, K_left, K_right, r, weights)
+
+
+def round_result(kp_left, kp_right, K_left, K_right, r: BAResult, weights):
+    """``ba_round``'s outputs from its solve ``r``: (pose, F, points, BA
+    reprojection error, converged)."""
     err = _masked_reconstruction_error(kp_left, kp_right, K_left, K_right, r.rotation,
                                        r.translation, r.points, weights)
     return r.pose, r.fundamental, r.points, err, r.converged

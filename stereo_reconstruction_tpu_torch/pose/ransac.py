@@ -22,7 +22,8 @@ On the card ``ransac_eight_point`` is the hand-written kernel
 (``csrc/ransac.cuh``, launched by ``ops/cuda_ransac.py``): two launches in
 place of the ~45,000 small ops of ``ransac_plain``, its plain twin, which
 CPU matches take. Nothing falls back: a CUDA input the kernel does not take
-raises, and ``check_kernel_config`` lets a caller raise before SIFT.
+raises, and ``pose.pipeline.check_kernel_config`` lets a caller raise before
+SIFT.
 """
 
 from __future__ import annotations
@@ -49,14 +50,6 @@ class RansacResult(NamedTuple):
     valid: torch.Tensor           # () bool: some hypothesis is cheirality-valid
     fit_pose: torch.Tensor        # (4, 4) of the most-inlier hypotheses, the best fitting
     fit_error: torch.Tensor       # () its ``match_fit``
-
-
-def check_kernel_config(config: RansacConfig, n: int, device) -> None:
-    """Raise ValueError where the card's kernel does not take ``config`` on
-    N matches (``cuda_ransac.check_config``); nothing for the CPU. The posed
-    paths call it before SIFT."""
-    if torch.device(device).type == "cuda":
-        cuda_ransac.check_config(config, n)
 
 
 def draw_uniforms(config: RansacConfig, n: int,

@@ -127,6 +127,29 @@ def ransac_bound(n: int, hypotheses: int = 256, sample: int = 8, support: int = 
     return bound(*ransac_bytes_ops(n, hypotheses, sample, support, rounds))
 
 
+def ba_bytes_ops(points: int = 60, steps: int = 20, starts: int = 2):
+    """(bytes, operations) of the BA kernel on one pair of ``points`` points
+    from ``starts`` starts: both sides' (3, points) observations, the
+    weights and the intrinsics read once, each start's R, T and (3, points)
+    points read once and its ``BAResult`` (149 bytes and its points) written
+    once; per point and evaluation ~1,200 float32 operations (the residuals
+    and their 4x6 and 4x3 Jacobians ~380, the weights ~55, B, v, E, C and g
+    ~400, the 3x3 inverse, E C^-1, the Schur terms ~265, the sums over the
+    points ~55, the point's step and its cost ~60) and per step ~400 more
+    (the rotation and its tangents, the 6x6 Cholesky and both
+    substitutions); ``steps`` evaluations and the start's."""
+    ops = starts * ((steps + 1) * 1200 * points + steps * 400)
+    nbytes = 28 * points + 72 + starts * (48 + 12 * points + 149 + 12 * points)
+    return nbytes, ops
+
+
+def ba_bound(points: int = 60, steps: int = 20, starts: int = 2):
+    """``bound`` of the BA kernel (``ba_bytes_ops``). Neither binds in
+    practice: each step's chain does, the per-point terms, three barriers,
+    the 6x6 Cholesky and its ~40 dependent divisions and square roots."""
+    return bound(*ba_bytes_ops(points, steps, starts))
+
+
 def matcher_roofline(H: int, W: int, D: int, block_size: int = 17,
                      min_disparity: int = 0, WL: int | None = None) -> Dict:
     """The bounds of one pair through the exact matcher on the card, K1

@@ -188,3 +188,15 @@ def test_ransac_bound_counts_bytes_and_operations():
     t, what = roofline.ransac_bound(500)
     assert what == "operations" and t == pytest.approx(ops / 67e12 * 1e3) and t < 1e-3
     assert roofline.eight_point_ops(16) > roofline.eight_point_ops(8) > 6 * 36 * 176
+
+
+def test_ba_bound_counts_bytes_and_operations():
+    """The BA kernel's bound at the posed request's shapes (60 points, 20
+    steps, two starts): operations bind, well under a microsecond, where
+    the chain of a step takes microseconds."""
+    nbytes, ops = roofline.ba_bytes_ops(60, 20, 2)
+    assert nbytes == 28 * 60 + 72 + 2 * (48 + 12 * 60 + 149 + 12 * 60)
+    assert ops == 2 * (21 * 1200 * 60 + 20 * 400)
+    t, what = roofline.ba_bound()
+    assert what == "operations" and t == pytest.approx(ops / 67e12 * 1e3) and t < 1e-3
+    assert roofline.ba_bytes_ops(128, 20, 1)[1] > roofline.ba_bytes_ops(60, 20, 1)[1]

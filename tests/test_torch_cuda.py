@@ -45,7 +45,13 @@ file's limits, past the matches whose refit keys shared memory holds too,
 launches twice a posed ``run_pair`` (never a fixed-F one) and twice a
 ``run_batch`` of four posed pairs, each of whose poses is within 1e-3 of
 its ``run_pair``, and from it the two benchmark fixtures pose within 0.5 /
-2 degrees.
+2 degrees. The BA kernel on the card equals its twin
+(``bundle_adjust_plain`` with its rounding pinned to the kernel's,
+``ba_twin.py``, on the CPU) bit for bit on the host build's cases, gives
+the poses of the plain route on the card to 1e-3 in ``run_pair`` and
+``run_batch``, launches once a ``refine_pose`` (both starts), once a
+further round of ``settle_pose`` and once a ``run_batch`` batch's round,
+never in a fixed-F request, and its limits raise before SIFT.
 """
 
 import os
@@ -87,6 +93,7 @@ from stereo_reconstruction_tpu_torch.perceptual.vgg import save_params_npz
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from chip_smoke import (  # noqa: E402
     _random_stereo,
+    ba_rounds,
     flat_pair,
     narrow_vgg_params,
     nonplanar_disparity,
@@ -103,6 +110,8 @@ from test_torch_ransac_host import (  # noqa: E402
     truth_angles,
 )
 from ransac_twin import card_kernel  # noqa: E402
+from ba_twin import card_kernel as card_ba_kernel, compare as compare_ba  # noqa: E402
+from test_torch_ba_host import FAR_SAMPLE, selection  # noqa: E402
 from torch_helpers import (  # noqa: E402
     STRIP_WIDTHS,
     WARP_IMAGE_CASES,
@@ -1126,3 +1135,183 @@ def test_distributed_ba_batch_equals_each_pair_on_card(cuda):
         one = distributed_bundle_adjust(kl, kr, K, K, Ri, Ti, pts, mesh)
         assert torch.equal(poses[i], one.pose) and torch.equal(X[i], one.points)
         assert torch.equal(cf[i], one.final_cost)
+
+
+def _far_ransac():
+    """The posed fixture's 222 valid matches and a RANSAC result whose winner
+    is the eight-point solve of ``FAR_SAMPLE``, 2.9 / 20.8 degrees off, with
+    no better fitting hypothesis: (matches left, right, n_valid, result),
+    CPU tensors."""
+    from stereo_reconstruction_tpu_torch.pose import ransac as pransac
+    from stereo_reconstruction_tpu_torch.pose.eight_point import eight_point
+
+    K = torch.from_numpy(RANSAC_K)
+    ml, mr, nv = request_matches("posed_request_matches", 222)
+    s = torch.tensor(FAR_SAMPLE)
+    r = eight_point(ml[:, s], mr[:, s], K, K)
+    return ml, mr, nv, pransac.RansacResult(
+        r.rotation, r.translation, r.essential, r.pose,
+        torch.cat([s, torch.zeros(8, dtype=s.dtype)]), torch.tensor(nv), torch.tensor(1.0),
+        torch.tensor(True), torch.tensor(True), r.pose, torch.tensor(0.0))
+
+
+def _ba_case(case):
+    """A BA problem of ``test_torch_ba_host.py``'s cases: (its selection,
+    its config), CPU tensors."""
+    import dataclasses
+
+    from stereo_reconstruction_tpu_torch.config import BundleAdjustmentConfig
+    from stereo_reconstruction_tpu_torch.pose.pipeline import select_points
+
+    name, _, variant = case.partition(":")
+    if name == "padded":
+        return selection(*scene_case(5, 127, 45)), BundleAdjustmentConfig(loss=variant)
+    if name == "far_start":
+        K = torch.from_numpy(RANSAC_K)
+        ml, mr, nv, rr = _far_ransac()
+        return (select_points(ml, mr, K, K, rr, torch.tensor(nv), PipelineConfig()),
+                BundleAdjustmentConfig())
+    if variant.isdigit():
+        cfg = PipelineConfig()
+        cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, num_points=int(variant)))
+        return selection(*request_matches(name, 500), cfg), cfg.ba
+    return selection(*request_matches(name, 500)), BundleAdjustmentConfig(loss=variant)
+
+
+@pytest.mark.parametrize("case", ["posed_request_matches:huber", "posed_request_matches:l2",
+                                  "far_winner_request:huber", "far_winner_request:l2",
+                                  "posed_request_matches:20", "posed_request_matches:128",
+                                  "padded:huber", "padded:l2", "far_start"])
+def test_ba_kernel_equals_twin_on_card(cuda, case):
+    sel, config = _ba_case(case)
+    got, _ = compare_ba(card_ba_kernel, sel.keypoints_left, sel.keypoints_right,
+                        torch.from_numpy(RANSAC_K), torch.from_numpy(RANSAC_K), sel.weights,
+                        sel.rotations, sel.translations, sel.points, config, device=cuda)
+    if case == "far_start":
+        assert not bool(got.converged.any())
+    elif not case.startswith("padded"):
+        assert bool(got.converged.all())
+
+
+def _plain_ba(monkeypatch):
+    """Card tensors routed to ``bundle_adjust_plain`` (the parent's
+    arithmetic on the card) for the time of a test."""
+    from stereo_reconstruction_tpu_torch.kernels import launch
+    from stereo_reconstruction_tpu_torch.pose import ba as pba
+
+    monkeypatch.setattr(pba, "on_card",
+                        lambda kernel, *t: False if kernel == "ba" else launch.on_card(kernel, *t))
+
+
+def test_posed_run_pair_on_the_ba_kernel_poses_as_the_plain_route(cuda, monkeypatch):
+    """``run_pair`` on the kernel (from CUDA graphs) against the pose stage
+    with BA on its plain twin on the card (eager; the graphs equal it bit for
+    bit): the rotation to 1e-3, as ``test_pose_stage_on_card_matches_cpu``,
+    the translation's direction to 0.05 degrees, the cost to 1e-3 relative."""
+    from stereo_reconstruction_tpu_torch.ops.features import Keypoints, \
+        detect_and_describe_batch
+    from stereo_reconstruction_tpu_torch.pipeline import pose_from_keypoints
+    from stereo_reconstruction_tpu_torch.pose.pipeline import settle_pose
+    from stereo_reconstruction_tpu_torch.pose.ransac import draw_uniforms
+
+    pair, R, T = _posed_pair()
+    cfg = PipelineConfig()
+    got = run_pair(pair, cfg, device=cuda).pose
+    images = torch.stack([torch.from_numpy(pair.image_left),
+                          torch.from_numpy(pair.image_right)]).to(cuda)
+    K = torch.from_numpy(pair.intrinsics_left).to(cuda)
+    u = draw_uniforms(cfg.ransac, cfg.frontend.max_keypoints,
+                      torch.Generator().manual_seed(cfg.seed)).to(cuda)
+    kp = detect_and_describe_batch(images, cfg.frontend)
+    _plain_ba(monkeypatch)
+    before = LAUNCHES["ba"]
+    want = settle_pose(pose_from_keypoints(Keypoints(*(x[0] for x in kp)),
+                                           Keypoints(*(x[1] for x in kp)), K, K, u, cfg),
+                       K, K, cfg)
+    assert LAUNCHES["ba"] == before
+    assert torch.equal(got.pose_ransac, want.pose_ransac)
+    assert bool(got.valid) and bool(want.valid)
+    np.testing.assert_allclose(got.pose.cpu().numpy()[:3, :3], want.pose.cpu().numpy()[:3, :3],
+                               atol=1e-3)
+    d_rot, d_trans = pose_angles(got.pose.cpu().numpy(), want.pose[:3, :3].cpu().numpy(),
+                                 want.pose[:3, 3].cpu().numpy())
+    assert d_trans < 0.05, d_trans
+    np.testing.assert_allclose(float(got.reproj_error_ba), float(want.reproj_error_ba),
+                               rtol=1e-3)
+    rot, trans = pose_angles(got.pose.cpu().numpy(), R, T)
+    assert rot < 1.0 and trans < 5.0
+
+
+def test_posed_run_pair_launches_the_ba_kernel_once_and_once_a_round(cuda):
+    pair, _, _ = _posed_pair()
+    cfg = PipelineConfig(matcher=MatcherConfig(block_size=7, max_disparity=80))
+    run_pair(pair, cfg, device=cuda)            # captures the pose stage's graphs
+    before = LAUNCHES["ba"]
+    with ba_rounds() as rounds:
+        res = run_pair(pair, cfg, device=cuda)
+    assert LAUNCHES["ba"] == before + 1 + len(rounds)
+    assert res.metrics["pose_ok"] == 1.0
+    _, _, _, _, _, F, _ = nonplanar_scene(np.random.default_rng(4), 240, 320)
+    run_pair(pair, cfg, fixed_F=F, device=cuda)
+    assert LAUNCHES["ba"] == before + 1 + len(rounds)
+
+
+def test_further_rounds_launch_the_ba_kernel_once_each(cuda):
+    """From the far start ``refine_pose`` (one launch for both starts) ends
+    unconverged: each further round of ``settle_pose`` is one launch."""
+    from stereo_reconstruction_tpu_torch.pose.pipeline import refine_pose, settle_pose
+    from stereo_reconstruction_tpu_torch.pose.ransac import RansacResult
+
+    ml, mr, nv, rr = _far_ransac()
+    K = torch.from_numpy(RANSAC_K).to(cuda)
+    cfg = PipelineConfig()
+    before = LAUNCHES["ba"]
+    est = refine_pose(ml.to(cuda), mr.to(cuda), K, K, RansacResult(*(x.to(cuda) for x in rr)),
+                      torch.tensor(nv, device=cuda), cfg)
+    assert LAUNCHES["ba"] == before + 1
+    assert bool(est.valid) and not bool(est.ba_converged)
+    with ba_rounds() as rounds:
+        settled = settle_pose(est, K, K, cfg)
+    assert len(rounds) >= 1 and LAUNCHES["ba"] == before + 1 + len(rounds)
+    assert bool(settled.ba_converged)
+    rot, trans = truth_angles(settled.pose)
+    assert rot <= 0.5 and trans <= 2.0, (rot, trans)
+
+
+def test_run_batch_launches_the_ba_kernel_once_a_batch_and_a_round(cuda):
+    """Four posed pairs: one launch for the batch's first round (every pair,
+    both starts) and one a further round of the batch; each pose within
+    1e-3 of its ``run_pair``."""
+    pairs = []
+    for seed in range(4):
+        left, right, K, _, _, _, _ = nonplanar_scene(np.random.default_rng(seed), 240, 384)
+        pairs.append(StereoPair(left, right, K.astype(np.float32), K.astype(np.float32),
+                                name=f"posed{seed}"))
+    u = batch_uniforms(BATCH_CONFIG, 4)
+    before = LAUNCHES["ba"]
+    with ba_rounds() as rounds:
+        res = run_batch(pairs, BATCH_CONFIG, uniforms=u, device=cuda)
+    assert LAUNCHES["ba"] == before + 1 + len(rounds)
+    for i, pair in enumerate(pairs):
+        one = run_pair(pair, BATCH_CONFIG, device=cuda, uniforms=u[i])
+        np.testing.assert_allclose(res.pose.pose[i, :3, :3].cpu().numpy(),
+                                   one.pose.pose[:3, :3].cpu().numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("field,value", [("num_points", 129), ("loss", "cauchy")])
+def test_posed_run_pair_refuses_a_ba_config_before_sift(cuda, monkeypatch, field, value):
+    """A BA configuration the card's kernel does not take raises
+    ``ValueError`` before the pose stage's SIFT runs."""
+    import dataclasses
+
+    from stereo_reconstruction_tpu_torch import pipeline as pipeline_mod
+
+    def no_sift(*args, **kwargs):
+        raise AssertionError("SIFT ran")
+
+    monkeypatch.setattr(pipeline_mod, "detect_and_describe_batch", no_sift)
+    pair, _, _ = _posed_pair()
+    cfg = PipelineConfig()
+    cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, **{field: value}))
+    with pytest.raises(ValueError, match="BA kernel"):
+        run_pair(pair, cfg, device=cuda)

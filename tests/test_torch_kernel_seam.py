@@ -26,6 +26,7 @@ from stereo_reconstruction_tpu_torch.ops import cuda_row_scan as crs
 from stereo_reconstruction_tpu_torch.ops import smoothing as tsm
 from stereo_reconstruction_tpu_torch.ops import warp as twarp
 from stereo_reconstruction_tpu_torch.perceptual import scan as pscan
+from stereo_reconstruction_tpu_torch.pose import ba as pba
 from stereo_reconstruction_tpu_torch.pose import ransac as pransac
 
 PACKAGE = Path(__file__).resolve().parent.parent / "stereo_reconstruction_tpu_torch"
@@ -52,6 +53,16 @@ def _matches():
     ml, mr = (torch.cat([torch.from_numpy(rng.uniform(0, 80, (2, 24)).astype(np.float32)),
                          torch.ones(1, 24)]) for _ in range(2))
     return ml, mr, K, K
+
+
+def _ba_problem():
+    """Observations of 24 points, the intrinsics, a start (R, T) and the
+    points' first guesses."""
+    ml, mr, K, _ = _matches()
+    R = torch.eye(3)
+    T = torch.tensor([-1.0, 0.0, 0.1])
+    X = torch.cat([(ml[:2] - 35.0) / 300.0, torch.ones(1, 24)]) * 5.0
+    return ml, mr, K, K, R, T, X
 
 
 def _volume():
@@ -82,6 +93,7 @@ OPS = {
                            lambda ml, mr, Kl, Kr: pransac.ransac_plain(
                                ml, mr, Kl, Kr, RANSAC, torch.tensor(ml.shape[-1]),
                                pransac.draw_uniforms(RANSAC, ml.shape[-1]))),
+    "bundle_adjust": ("ba", _ba_problem, pba.bundle_adjust, pba.bundle_adjust_plain),
 }
 
 
