@@ -43,6 +43,17 @@ in JAX); ``run_batches``
 orders the stages so batch i+1's upload and pose are queued before batch
 i's host geometry waits.
 
+Spans (``utils/profiling.py::span``, recorded under a profiler session,
+with the names ``run_pair`` uses): ``run_batch`` around the call;
+``batch.upload``, the pinned uploads; ``pose`` from the first shard's
+dispatch to the host reads of its settled pose (``pose.features`` around
+the detector batch, the pose stage's own ``pose.match``, ``pose.ransac``
+and ``pose.ba`` under it), and one more ``pose`` for each later shard's
+wait; ``rectify.homographies``, host Loop-Zhang and the canvas; ``dense``
+from the warps (``rectify.warp``) and the matcher (``disparity``) through
+the downloads (``entry.download``), the last shard's running on through
+every shard's downloads. None adds a host sync.
+
 ``mesh=``, a one-process ``parallel.mesh.Mesh``, splits the batch over its
 ``data`` axis, as JAX shards the images, intrinsics and keys with
 ``P("data", ...)``: data shard i takes the i-th run of B / data pairs, on
@@ -86,6 +97,7 @@ from stereo_reconstruction_tpu_torch.recon.disparity import (
 )
 from stereo_reconstruction_tpu_torch.rectify.loop_zhang import loop_zhang_homographies
 from stereo_reconstruction_tpu_torch.rectify.rectifier import static_canvas
+from stereo_reconstruction_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -130,7 +142,8 @@ def _pose_dispatch(left, right, K_left, K_right, uniforms, config) -> PoseEstima
     under ``torch.func.vmap``: queued with no host sync."""
     B = left.shape[0]
     check_kernel_config(config, left.device)
-    kp = detect_and_describe_batch(torch.cat([left, right]), config.frontend)
+    with span("pose.features"):
+        kp = detect_and_describe_batch(torch.cat([left, right]), config.frontend)
     kp_l = Keypoints(*(x[:B] for x in kp))
     kp_r = Keypoints(*(x[B:] for x in kp))
     return vmap(lambda kl, kr, a, b, u: pose_from_keypoints(kl, kr, a, b, u, config))(
@@ -175,6 +188,10 @@ class _Staged:
     pose: Optional[PoseEstimate] = None
     pose_ok: Optional[np.ndarray] = None
     err_ba: Optional[np.ndarray] = None
+    F: Optional[np.ndarray] = None             # (B, 3, 3) float64 on the host
+    Hl: Optional[np.ndarray] = None
+    Hr: Optional[np.ndarray] = None
+    canvas: Optional[tuple] = None
     disp_i16: Optional[torch.Tensor] = None
     depth: Optional[torch.Tensor] = None
     ev: Optional[dict] = None
@@ -212,20 +229,21 @@ def _stage_upload(pairs, config: PipelineConfig, uniforms, blocks) -> List[_Stag
         raise ValueError(f"uniforms of shape {tuple(uniforms.shape)}, want {want}")
     timings: Dict[str, float] = {}
     shards = []
-    for rows, device in blocks:
-        padded = [pad_to(p, hmax, wmax) for p in pairs[rows]]
+    with span("batch.upload"):
+        for rows, device in blocks:
+            padded = [pad_to(p, hmax, wmax) for p in pairs[rows]]
 
-        def stack(field, dtype=None):
-            return _to_device(np.stack([np.asarray(getattr(p, field), dtype)
-                                        for p in padded]), device)
+            def stack(field, dtype=None):
+                return _to_device(np.stack([np.asarray(getattr(p, field), dtype)
+                                            for p in padded]), device)
 
-        shards.append(_Staged(
-            pairs=pairs[rows], padded=padded, hmax=hmax, wmax=wmax, device=device,
-            L=stack("image_left").to(torch.float32),
-            R=stack("image_right").to(torch.float32),
-            KL=stack("intrinsics_left", np.float32),
-            KR=stack("intrinsics_right", np.float32),
-            uniforms=_to_device(uniforms[rows].numpy(), device), timings=timings))
+            shards.append(_Staged(
+                pairs=pairs[rows], padded=padded, hmax=hmax, wmax=wmax, device=device,
+                L=stack("image_left").to(torch.float32),
+                R=stack("image_right").to(torch.float32),
+                KL=stack("intrinsics_left", np.float32),
+                KR=stack("intrinsics_right", np.float32),
+                uniforms=_to_device(uniforms[rows].numpy(), device), timings=timings))
     return shards
 
 
@@ -235,51 +253,61 @@ def _stage_pose_dispatch(st: _Staged, config: PipelineConfig) -> None:
     _add(st.timings, "pose_dispatch", time.perf_counter() - t0)
 
 
-def _stage_host_geometry(st: _Staged, config: PipelineConfig) -> None:
-    """Wait for the pose outputs, settle BA (``pose_batch``'s second
-    half), run host Loop-Zhang, queue the dense stage and the batched
-    metric."""
-    B = len(st.pairs)
+def _stage_settle(st: _Staged, config: PipelineConfig) -> None:
+    """Wait for the pose outputs and settle BA (``pose_batch``'s second
+    half): the host reads of F, ``valid`` and the error."""
     t0 = time.perf_counter()
     st.pose = settle_pose(st.pose, st.KL, st.KR, config)             # sync point
-    F_all = st.pose.fundamental.cpu().numpy().astype(np.float64)
+    st.F = st.pose.fundamental.cpu().numpy().astype(np.float64)
     valid = st.pose.valid.cpu().numpy()
     st.err_ba = st.pose.reproj_error_ba.cpu().numpy()
+    st.pose_ok = valid & (st.err_ba < 50.0)
     _add(st.timings, "pose", time.perf_counter() - t0)
 
+
+def _stage_homographies(st: _Staged, config: PipelineConfig) -> None:
+    """Host Loop-Zhang for each pair whose pose is sound, and the canvas."""
+    B = len(st.pairs)
     t0 = time.perf_counter()
-    pose_ok = valid & (st.err_ba < 50.0)
-    Hl = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
-    Hr = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
-    for i in range(B):
-        if not pose_ok[i]:
-            continue
-        shape = (st.pairs[i].height, st.pairs[i].width)
-        try:
-            # the pair's TRUE shape, not the batch padding: the shearing stage
-            # normalises by the image corners, and the back-warp resamples
-            # disparity values, so another canvas scale rescales them
-            homs = loop_zhang_homographies(F_all[i], shape, shape)
-        except np.linalg.LinAlgError:      # a degenerate F fails its pair alone
-            pose_ok[i] = False
-            continue
-        Hl[i] = homs.H_left.astype(np.float32)
-        Hr[i] = homs.H_right.astype(np.float32)
-    st.pose_ok = pose_ok
+    with span("rectify.homographies"):
+        pose_ok = st.pose_ok
+        Hl = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
+        Hr = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
+        for i in range(B):
+            if not pose_ok[i]:
+                continue
+            shape = (st.pairs[i].height, st.pairs[i].width)
+            try:
+                # the pair's TRUE shape, not the batch padding: the shearing stage
+                # normalises by the image corners, and the back-warp resamples
+                # disparity values, so another canvas scale rescales them
+                homs = loop_zhang_homographies(st.F[i], shape, shape)
+            except np.linalg.LinAlgError:      # a degenerate F fails its pair alone
+                pose_ok[i] = False
+                continue
+            Hl[i] = homs.H_left.astype(np.float32)
+            Hr[i] = homs.H_right.astype(np.float32)
+        st.Hl, st.Hr = Hl, Hr
+        st.canvas = static_canvas((st.hmax, st.wmax), (st.hmax, st.wmax), config.rectify)
     _add(st.timings, "loop_zhang_host", time.perf_counter() - t0)
 
+
+def _stage_dense_dispatch(st: _Staged, config: PipelineConfig) -> None:
+    """Queue the dense stage and the batched metric."""
+    B = len(st.pairs)
     t0 = time.perf_counter()
-    canvas = static_canvas((st.hmax, st.wmax), (st.hmax, st.wmax), config.rectify)
     out_shape = (st.hmax, st.wmax)
-    # both sides' warps at once: one launch of the warp kernel on the card
-    rect = warp_perspective([*st.L, *st.R], np.concatenate([Hl, Hr]), canvas)
+    with span("rectify.warp"):
+        # both sides' warps at once: one launch of the warp kernel on the card
+        rect = warp_perspective([*st.L, *st.R], np.concatenate([st.Hl, st.Hr]), st.canvas)
     rect_l, rect_r = rect[:B], rect[B:]
-    # the matcher's kernels take one pair: one K1 and one K1b launch each
-    disp_rect = torch.stack([compute_disparity(rect_l[i], rect_r[i], config)
-                             for i in range(B)])
+    with span("disparity"):
+        # the matcher's kernels take one pair: one K1 and one K1b launch each
+        disp_rect = torch.stack([compute_disparity(rect_l[i], rect_r[i], config)
+                                 for i in range(B)])
     # NN back-warp of disparity VALUES (the reference's approximation,
     # rectification.cpp:70-88, with the right image's homography)
-    disp = warp_perspective(disp_rect, host_inverse(Hr), out_shape, method="nearest")
+    disp = warp_perspective(disp_rect, host_inverse(st.Hr), out_shape, method="nearest")
     recon = config.recon
     disp_clean = vmap(lambda d: remove_disparity_outliers(
         d, recon.outlier_kernel, recon.outlier_front, recon.outlier_back))(disp)
@@ -303,12 +331,21 @@ def _stage_host_geometry(st: _Staged, config: PipelineConfig) -> None:
     _add(st.timings, "dense_dispatch", time.perf_counter() - t0)
 
 
+def _stage_host_geometry(st: _Staged, config: PipelineConfig) -> None:
+    """Wait for the pose outputs, settle BA, run host Loop-Zhang, queue the
+    dense stage and the batched metric."""
+    _stage_settle(st, config)
+    _stage_homographies(st, config)
+    _stage_dense_dispatch(st, config)
+
+
 def _stage_collect(st: _Staged, fetch_depth: bool) -> BatchResult:
     """Wait for one shard's downloads and assemble its result."""
     B = len(st.pairs)
     t0 = time.perf_counter()
-    disp_np = st.disp_i16.cpu().numpy().astype(np.float32)
-    depth_np = st.depth.cpu().numpy() if fetch_depth else None
+    with span("entry.download"):
+        disp_np = st.disp_i16.cpu().numpy().astype(np.float32)
+        depth_np = st.depth.cpu().numpy() if fetch_depth else None
     _add(st.timings, "dense", time.perf_counter() - t0
          + st.timings.pop("dense_dispatch", 0.0))
 
@@ -363,12 +400,23 @@ def run_batch(
     ``data`` (``ValueError``); a ``multihost.ProcessGroupMesh`` raises
     ``NotImplementedError``. The result is the whole batch's, in order;
     its timings span all shards."""
-    shards = _stage_upload(pairs, config, uniforms, _shard_blocks(mesh, len(pairs), device))
-    for st in shards:
-        _stage_pose_dispatch(st, config)
-    for st in shards:
-        _stage_host_geometry(st, config)
-    res = _collect(shards, fetch_depth)
+    with span("run_batch"):
+        shards = _stage_upload(pairs, config, uniforms,
+                               _shard_blocks(mesh, len(pairs), device))
+        with span("pose"):
+            for st in shards:
+                _stage_pose_dispatch(st, config)
+            _stage_settle(shards[0], config)
+        for i, st in enumerate(shards):
+            if i:
+                with span("pose"):
+                    _stage_settle(st, config)
+            _stage_homographies(st, config)
+            with span("dense"):
+                _stage_dense_dispatch(st, config)
+                if i == len(shards) - 1:
+                    # the last shard's span runs on through every shard's downloads
+                    res = _collect(shards, fetch_depth)
     res.timings["pose"] += res.timings.pop("pose_dispatch", 0.0)
     return res
 

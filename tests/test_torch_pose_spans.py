@@ -2,8 +2,9 @@
 ``pose.match``, ``pose.ransac``, ``pose.ba``) on the CPU: children of
 ``run_pair``'s ``pose`` stage in that order and inside it while a
 profiler session is active; nothing recorded without one; and
-``run_batch``, whose pose runs ``pose_from_keypoints`` under
-``torch.func.vmap``, runs under an active recorder."""
+``run_batch``, whose pose runs one detector batch (``pose.features``) and
+``pose_from_keypoints`` under ``torch.func.vmap``, runs under an active
+recorder (``tests/test_torch_batch_spans.py`` holds its span tree)."""
 
 import os
 import sys
@@ -77,8 +78,8 @@ def test_run_batch_runs_under_an_active_recorder(posed_pair):
     with profile(activities=[ProfilerActivity.CPU]):
         recorded = tpb.run_batch([posed_pair], CONFIG, uniforms=u, device="cpu")
     names = [s.name for s in profiling.spans()]
-    # the vmapped body runs once for the batch
-    assert [n for n in names if n.startswith("pose.")] == ["pose.match", "pose.ransac",
-                                                            "pose.ba"]
+    # one detector batch, then the vmapped body once for the batch
+    assert [n for n in names if n.startswith("pose.")] == ["pose.features", "pose.match",
+                                                            "pose.ransac", "pose.ba"]
     assert torch.equal(recorded.pose.pose, plain.pose.pose)
     np.testing.assert_array_equal(recorded.disparity, plain.disparity)
