@@ -142,11 +142,12 @@ code 1, no result line) if anything is off:
    (``multihost``, a ``file://`` store) running the exact matcher equal
    to the one-process mesh.
 
-``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp ransac ba]`` times K1,
+``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp ransac ba sift]`` times K1,
 K1b, K2 and K3 at shape (b), K4 at 375x450 (D=100 and 200, and one strip
 alone), the warp kernel at the fixed-F request's shapes and the RANSAC
 and BA kernels at the posed request's (N = 500, 256 hypotheses; 60 points,
-two starts), or only the kernels named, and prints one JSON line
+two starts) and the SIFT scale-space kernels on its two 750x900 images and
+on 16 (``sift_times``), or only the kernels named, and prints one JSON line
 (``time_kernels``).
 
 Each path (5, 6, 8, 9, 10, 12, 13, 14, 15) runs with every launch count
@@ -710,7 +711,7 @@ def _kernel_split(call, torch):
 KERNEL_NAMES = {"K1": "matcher_inputs_kernel", "K1b": "row_scan_kernel",
                 "K2": "cost_volume_kernel", "K3": "block_search_rows_kernel",
                 "K4": "perceptual_scan_kernel", "warp": "warp_kernel",
-                "ransac": "stpu::ransac::", "ba": "stpu::ba::"}
+                "ransac": "stpu::ransac::", "ba": "stpu::ba::", "sift": "stpu::sift::"}
 
 
 def _profiled_launches(call, torch):
@@ -794,13 +795,15 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
     pairs.append(pad_to(StereoPair(fl, fr, K_flat, K_flat, name="flat"), h, w))
     B = len(pairs)
     u = batch_uniforms(config, B)
+    sift = sift_launches(config.frontend, h, w)     # one SIFT batch of the 2B images
     reset_counts()
     with ba_rounds() as rounds:
         res = run_batch(pairs, config, uniforms=u, device=dev)
-    if counts() != expected(K1=B, K1b=B, warp=2, ransac=2, ba=1 + len(rounds)):
+    if counts() != expected(K1=B, K1b=B, warp=2, ransac=2, ba=1 + len(rounds), sift=sift):
         raise AssertionError(f"run_batch launches {counts()}: want {B} K1, {B} K1b, 2 "
                              f"warps (the {2 * B} rectifying images, the back-warps), 2 "
-                             f"RANSAC and 1 + {len(rounds)} BA (its first round, each further)")
+                             f"RANSAC, 1 + {len(rounds)} BA (its first round, each further) "
+                             f"and {sift} SIFT (one batch of {2 * B} images)")
     launches = {"K1": counts()["K1"], "K1b": counts()["K1b"]}
     padded = (B, h + (-h) % 8, w + (-w) % 128)
     if res.disparity.shape != padded or not np.isfinite(res.disparity).all():
@@ -822,7 +825,7 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
         plain = run_batch(pairs, config.replace(matcher=dataclasses.replace(config.matcher,
                                                                             backend="xla")),
                           uniforms=u, device=dev)
-    if counts() != expected(warp=2, ransac=2, ba=1 + len(rounds)):
+    if counts() != expected(warp=2, ransac=2, ba=1 + len(rounds), sift=sift):
         raise AssertionError(f"plain run_batch launched matcher kernels: {counts()}")
     agree_plain = [float(np.mean(res.disparity[i] == plain.disparity[i])) for i in range(B)]
     agree_one = [float(np.mean(res.disparity[i] == run_batch(
@@ -843,9 +846,9 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
             lambda: run_batch(pairs, config, uniforms=u, device=dev), torch)
     if seen is None:
         raise AssertionError("the profiler saw no device work in run_batch")
-    if seen != expected(K1=B, K1b=B, warp=2, ransac=2, ba=1 + len(rounds)):
+    if seen != expected(K1=B, K1b=B, warp=2, ransac=2, ba=1 + len(rounds), sift=sift):
         raise AssertionError(f"the profiler saw {seen} in run_batch: want {B} K1, "
-                             f"{B} K1b and 2 warps")
+                             f"{B} K1b, 2 warps and {sift} SIFT")
     print(f"[batch] torch.profiler in run_batch B={B}: {seen}; {n_kernels} device "
           f"kernels in all, {device_ms:.1f} ms device time", flush=True)
 
@@ -854,9 +857,9 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
     reset_counts()
     with ba_rounds() as rounds:
         sharded = run_batch(pairs, config, uniforms=u, mesh=mesh)
-    if counts() != expected(K1=B, K1b=B, warp=4, ransac=4, ba=2 + len(rounds)):
-        raise AssertionError(f"run_batch(mesh=) launches {counts()}: want {B} K1, {B} K1b "
-                             f"and 2 warps a shard")
+    if counts() != expected(K1=B, K1b=B, warp=4, ransac=4, ba=2 + len(rounds), sift=2 * sift):
+        raise AssertionError(f"run_batch(mesh=) launches {counts()}: want {B} K1, {B} K1b, "
+                             f"2 warps and {sift} SIFT a shard")
     if sharded.disparity.shape != padded or not np.isfinite(sharded.disparity).all():
         raise AssertionError(f"run_batch(mesh=): bad disparity {sharded.disparity.shape}")
     if sharded.pose_ok.tolist() != [True, True, True, False]:
@@ -887,17 +890,18 @@ def batch_phase(torch, dev, config, smi, counts, reset_counts, expected, h=750, 
             lambda: run_batch(pairs, config, uniforms=u, mesh=mesh), torch)
     if seen is None:
         raise AssertionError("the profiler saw no device work in run_batch(mesh=)")
-    if seen != expected(K1=B, K1b=B, warp=4, ransac=4, ba=2 + len(rounds)):
+    if seen != expected(K1=B, K1b=B, warp=4, ransac=4, ba=2 + len(rounds), sift=2 * sift):
         raise AssertionError(f"the profiler saw {seen} in run_batch(mesh=): want {B} K1, "
-                             f"{B} K1b and 4 warps")
+                             f"{B} K1b, 4 warps and {2 * sift} SIFT")
     print(f"[batch] torch.profiler in run_batch(mesh=) B={B}: {seen}; {n_kernels} device "
           f"kernels in all, {device_ms:.1f} ms device time", flush=True)
     reset_counts()
     with ba_rounds() as rounds:
         piped = run_batches([pairs, pairs], config, mesh=mesh)
-    if counts() != expected(K1=2 * B, K1b=2 * B, warp=8, ransac=8, ba=4 + len(rounds)):
+    if counts() != expected(K1=2 * B, K1b=2 * B, warp=8, ransac=8, ba=4 + len(rounds),
+                            sift=4 * sift):
         raise AssertionError(f"run_batches(mesh=) launches {counts()}: want {2 * B} K1 and "
-                             f"K1b, 8 warps")
+                             f"K1b, 8 warps, {4 * sift} SIFT")
     _same_batch_result(piped[0], sharded, "run_batches(mesh=) batch 0 vs run_batch(mesh=)")
     _same_batch_result(piped[1], run_batch(pairs, config, uniforms=batch_uniforms(config, B, 1),
                                            mesh=mesh),
@@ -1067,7 +1071,9 @@ def variants_phase(torch, dev, smi, rect, pair, F, batch_pair, counts, reset_cou
     reset_counts()
     with ba_rounds() as rounds:
         res = run_batch([batch_pair], config, uniforms=batch_uniforms(config, 1), device=dev)
-    if counts() != expected(K1b=1, warp=2, ransac=2, ba=1 + len(rounds)) or not res.pose_ok[0]:
+    sift = sift_launches(config.frontend, *batch_pair.image_left.shape[:2])
+    if counts() != expected(K1b=1, warp=2, ransac=2, ba=1 + len(rounds), sift=sift) \
+            or not res.pose_ok[0]:
         raise AssertionError(f"[variants] run_batch ncc: launches {counts()}, "
                              f"{res.metrics}")
     if not res.metrics[0]["bad_percent"] < MAX_TOTAL_BAD:
@@ -1126,14 +1132,19 @@ def uncalibrated_phase(torch, dev, smi, counts, reset_counts, expected, h=750, w
             res = run_uncalibrated(left, right, config, detector=detector, output_dir=out,
                                    device=dev)
             wall = time.perf_counter() - t0
-            if counts() != expected(K1b=1, warp=1):
-                raise AssertionError(f"[uncalibrated] {detector}: launches {counts()}")
+            # both images' detections: SIFT's scale space, or ORB's or BRISK's blurs
+            sift = 2 * (sift_launches(config.frontend, h, w) if detector == "dog" else
+                        binary_blurs(detector, getattr(config, detector), h, w))
+            if counts() != expected(K1b=1, warp=1, sift=sift):
+                raise AssertionError(f"[uncalibrated] {detector}: launches {counts()}, want "
+                                     f"{sift} SIFT")
             pngs = all(os.path.exists(os.path.join(out, n)) for n in (
                 "rectified_left.png", "rectified_right.png", "disparity_linear.png"))
             print(f"[uncalibrated] {detector} {h}x{w}: {res.num_inliers} inliers, epipolar "
                   f"alignment {res.epipolar_alignment_px:.4f} px, F_rectified "
                   f"{res.F_rectified is not None}, PNGs {pngs}, disparity "
-                  f"{res.disparity.shape}, 1 K1b launch; {wall * 1e3:.1f} ms with the PNGs ({smi})",
+                  f"{res.disparity.shape}, 1 K1b launch, {sift} SIFT; {wall * 1e3:.1f} ms "
+                  f"with the PNGs ({smi})",
                   flush=True)
             if not (res.num_inliers >= 30 and res.epipolar_alignment_px <= 2.0
                     and res.F_rectified is not None and pngs
@@ -1746,8 +1757,120 @@ def sharded_phase(torch, dev, smi, counts, reset_counts, expected, h=1128, w=140
     return out, launches
 
 
+def sift_launches(frontend, h, w):
+    """The SIFT kernels' launches in one ``detect_and_describe_batch`` call
+    on (h, w) images: the first level, then s + 2 levels and one detection
+    an octave, for each octave of at least 17x17 (25 at 750x900 with the
+    default ``FrontendConfig``)."""
+    octaves = 0
+    while octaves < frontend.num_octaves and min(h, w) >= 17:
+        octaves += 1
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return 1 + octaves * (frontend.scales_per_octave + 3)
+
+
+def binary_blurs(detector, config, h, w):
+    """The level kernel's launches in one ORB or BRISK detection of an (h, w)
+    image, one a ``gaussian_blur``: ORB's three Harris blurs and its BRIEF
+    blur a pyramid level, BRISK's ring blurs a level of its octave ladder."""
+    from stereo_reconstruction_tpu_torch.ops.binary_features import _brisk_pattern
+
+    if detector == "orb":
+        scales = [config.scale_factor ** level for level in range(config.num_levels)]
+        per_level = 4
+    else:
+        scales = [f * 2.0 ** i for i in range(config.octaves) for f in (1.0, 1.5)]
+        per_level = len(_brisk_pattern(float(config.pattern_scale), int(config.max_bits))[2])
+    side = 2 * config.edge_margin + 8
+    levels = 0
+    for scale in scales:
+        if int(round(h / scale)) < side or int(round(w / scale)) < side:
+            break
+        levels += 1
+    return per_level * levels
+
+
+def sift_check(torch, images, cfg, what):
+    """The SIFT kernels' planes (``scale_space_kernel``) and keypoints
+    (``detect_and_describe_batch``) on ``images`` against the eager twin's
+    (``scale_space_plain`` with ``blur_in_tap_order``,
+    ``detect_and_describe_plain``) bit for bit, the keypoints with
+    PyTorch's deterministic ``scatter_add_``, and the launch count; returns
+    the largest |kernel - twin| over the planes and the valid keypoints."""
+    from stereo_reconstruction_tpu_torch.kernels.launch import LAUNCHES
+    from stereo_reconstruction_tpu_torch.ops import features as tf
+
+    gray = tf._gray(images)
+    want_launches = sift_launches(cfg, *gray.shape[-2:])
+    before = LAUNCHES["sift"]
+    got = tf.scale_space_kernel(gray, cfg)
+    if LAUNCHES["sift"] - before != want_launches:
+        raise AssertionError(f"{what}: {LAUNCHES['sift'] - before} sift launches, not "
+                             f"{want_launches}")
+    want = tf.scale_space_plain(gray, cfg)
+    err = 0.0
+    for field in got._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        for o, (a, b) in enumerate(zip(*((x,) if torch.is_tensor(x) else x
+                                         for x in (g, w)))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: the kernel's {field} (octave {o}) != the "
+                                     f"twin's: {int((a != b).sum())} of {a.numel()}")
+            err = max(err, _max_abs_err(a, b))
+    # orientation's and the descriptor's scatter_add_ histograms add by
+    # atomics on the card, in any order, on both routes alike
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        kg = tf.detect_and_describe_batch(images, cfg)
+        kw = tf.detect_and_describe_plain(images, cfg)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for field in kg._fields:
+        if not torch.equal(getattr(kg, field), getattr(kw, field)):
+            raise AssertionError(f"{what}: keypoint field {field} != the twin's")
+    return err, int(kg.valid.sum())
+
+
+def sift_times(torch, dev, bounds):
+    """The SIFT scale-space kernels (25 launches a call at the default
+    ``FrontendConfig``) on one posed request's two 750x900 images
+    (``sift_request``) and on a batch of 16 (``sift_batch16``): first
+    ``sift_check``, then the kernels' device time queued behind a sleeping kernel, one call's wall
+    time with its host enqueue (``_wall``), the twin's wall time
+    (``_plain``), the whole front end's on each route (``_describe``,
+    ``_describe_plain``), and the bytes bound into ``bounds``."""
+    from stereo_reconstruction_tpu_torch.config import FrontendConfig
+    from stereo_reconstruction_tpu_torch.ops import features as tf
+    from stereo_reconstruction_tpu_torch.utils.roofline import sift_bound
+
+    cfg = FrontendConfig()
+    rng = np.random.default_rng(SEED)
+    images = []
+    for _ in range(8):
+        images += list(nonplanar_scene(rng, 750, 900)[:2])
+    batch = torch.from_numpy(np.stack(images)).to(dev)
+    radii = [(len(tf._taps(float(x))) - 1) // 2
+             for x in (cfg.init_sigma, *tf._level_sigmas(cfg)[1])]
+    ms = {}
+    for key, imgs in (("sift_request", batch[:2].contiguous()), ("sift_batch16", batch)):
+        gray = tf._gray(imgs)
+        _, valid = sift_check(torch, imgs, cfg, key)
+        print(f"[sift] {key}: planes and keypoints equal the eager twin's bit for bit "
+              f"({valid} valid keypoints), {sift_launches(cfg, 750, 900)} launches",
+              flush=True)
+        ms[key] = _median_queued_ms(lambda: tf.scale_space_kernel(gray, cfg), torch)
+        ms[key + "_wall"] = _median_ms(lambda: tf.scale_space_kernel(gray, cfg), torch)
+        ms[key + "_plain"] = _median_ms(lambda: tf.scale_space_plain(gray, cfg), torch)
+        ms[key + "_describe"] = _median_ms(lambda: tf.detect_and_describe_batch(imgs, cfg),
+                                           torch)
+        ms[key + "_describe_plain"] = _median_ms(
+            lambda: tf.detect_and_describe_plain(imgs, cfg), torch)
+        bounds[key] = sift_bound(imgs.shape[0], 750, 900, radii)
+    return ms
+
+
 def time_kernels(only=()) -> int:
-    """``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp ransac ba]``: K1,
+    """``python3 chip_smoke.py --time-kernels [K1 K1b K2 K3 K4 warp ransac ba sift]``: K1,
     K1b, K2 and K3 at shape (b) on the integer-valued pair, and K1b seeded on the
     exact sharded matcher's 282-row tile of it (``K1b_tile``); K4 on a
     planted ``perceptual_volume`` at 375x450, D=100, chunk 20, one 20-column
@@ -1765,7 +1888,8 @@ def time_kernels(only=()) -> int:
     (``ransac_plain_graph``), queued the same way; the BA kernel (one
     launch) on the BA problem of the same request (``ba_problem``: 60
     points, both starts, 20 steps; ``ba``) beside its twin replayed from a
-    CUDA graph (``ba_plain_graph``), queued the same way. Names given:
+    CUDA graph (``ba_plain_graph``), queued the same way; the SIFT
+    scale-space kernels (``sift_times``). Names given:
     only those kernels. CUDA events, median of REPEATS over CALLS back-to-back calls
     (K3 one call a sample), as one JSON line. It uses only arguments the
     wrappers have taken since seeded rows came in, so a copy of this file
@@ -1784,7 +1908,7 @@ def time_kernels(only=()) -> int:
     from stereo_reconstruction_tpu_torch.ops.cost_volume import black_pixel_mask
     from stereo_reconstruction_tpu_torch.perceptual import scan as pscan
 
-    only = set(only) or {"K1", "K1b", "K2", "K3", "K4", "warp", "ransac", "ba"}
+    only = set(only) or {"K1", "K1b", "K2", "K3", "K4", "warp", "ransac", "ba", "sift"}
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1873,12 +1997,14 @@ def time_kernels(only=()) -> int:
         problem = [t.to(dev) for t in ba_problem()]
         ms["ba"], ms["ba_plain_graph"] = ba_times(torch, *problem, cfg)
         bounds["ba"] = ba_bound(cfg.num_points, cfg.max_iterations, 2)
+    if "sift" in only:
+        ms.update(sift_times(torch, dev, bounds))
     print(json.dumps({"card": smi, "checkout": os.path.dirname(os.path.abspath(__file__)),
                       "shape": "(b) 1128x1408, D=200, block 17; K4 375x450, chunk 20 "
                                "(394 diagonals a strip); warp 750x900x3 uint8 x 2 -> "
                                "1128x1408, 1128x1408 float32 -> 750x900; RANSAC N=500, "
                                "256 hypotheses of 8, 2 refits on 16; BA 60 points, 2 starts, "
-                               "20 steps", "ms": ms,
+                               "20 steps; SIFT scale space 750x900 x 2 and x 16", "ms": ms,
                       "bound_ms": bounds}))
     return 0
 
@@ -1920,7 +2046,7 @@ def main() -> int:
 
     def expected(**k):
         return {"K1": 0, "K1b": 0, "K2": 0, "K3": 0, "K4": 0, "warp": 0, "ransac": 0, "ba": 0,
-                **k}
+                "sift": 0, **k}
 
     def counts():
         return {kernel: LAUNCHES[kernel] for kernel in expected()}
@@ -1950,7 +2076,7 @@ def main() -> int:
         "d": dict(h=101, w=200, wl_extra=0, bs=9, min_d=1, max_d=31),
     }
     max_err = {"K1": 0.0, "K1b": 0.0, "K2": 0.0, "K3": 0.0, "warp": 0.0, "ransac": 0.0,
-               "ba": 0.0}
+               "ba": 0.0, "sift": 0.0}
     times = {}
     bounds = {}
     for key, s in shapes.items():
@@ -2319,18 +2445,20 @@ def main() -> int:
     gt, mask = nonplanar_disparity(src, F_true)
     pair = StereoPair(left_np, right_np, K.astype(np.float32), K.astype(np.float32),
                       disp_right_gt=gt, mask_right_nocc=mask, name="nonplanar")
+    sift = sift_launches(config.frontend, 750, 900)   # SIFT x2 as one batch
     with tempfile.TemporaryDirectory() as tmp:
         reset_counts()
         with ba_rounds() as rounds:
             res = run_pair(pair, config, output_dir=tmp, write_mesh=True, device=dev)
         # the first posed call captures the pose stage's graphs, launching
         # RANSAC once more to feed the select graph's capture, and BA twice
-        # more to feed the choose and round graphs' (pose/graphs.py)
-        if counts() != expected(K1=1, K1b=1, warp=2, ransac=4, ba=3 + len(rounds)):
+        # more to feed the choose and round graphs' (pose/graphs.py); SIFT
+        # runs before them, once
+        if counts() != expected(K1=1, K1b=1, warp=2, ransac=4, ba=3 + len(rounds), sift=sift):
             raise AssertionError(f"run_pair() launches {counts()}: want one K1, one K1b, "
-                                 f"two warps, four RANSAC (two and the capture's two) and "
+                                 f"two warps, four RANSAC (two and the capture's two), "
                                  f"3 + {len(rounds)} BA (one, the capture's two, each "
-                                 f"further round)")
+                                 f"further round) and {sift} SIFT")
         pose = res.pose
         P = pose.pose.cpu().numpy()
         rot, trans = pose_angles(P, R_true, T_true)
@@ -2365,9 +2493,10 @@ def main() -> int:
         reset_counts()
         with ba_rounds() as rounds:
             r = run_pair(pair, config, device=dev)
-        if counts() != expected(K1=1, K1b=1, warp=2, ransac=2, ba=1 + len(rounds)):
+        if counts() != expected(K1=1, K1b=1, warp=2, ransac=2, ba=1 + len(rounds), sift=sift):
             raise AssertionError(f"run_pair() launches {counts()}")
         launches["ransac"], launches["ba"] = counts()["ransac"], counts()["ba"]
+        launches["sift"] = counts()["sift"]
         if not torch.equal(r.pose.pose, pose.pose):
             raise AssertionError("run_pair() pose is not deterministic")
         runs.append(r.timings)
@@ -2384,6 +2513,25 @@ def main() -> int:
     from stereo_reconstruction_tpu_torch.utils.roofline import ransac_bound
 
     images = torch.stack([torch.from_numpy(left_np), torch.from_numpy(right_np)]).to(dev)
+    # the SIFT kernels on this run's two images against their eager twin
+    from stereo_reconstruction_tpu_torch.ops import features as tf
+    from stereo_reconstruction_tpu_torch.utils.roofline import sift_bound
+
+    max_err["sift"], n_sift = sift_check(torch, images, config.frontend, "[pose] SIFT")
+    gray = tf._gray(images)
+    times["sift", "pose_sift"] = (
+        _median_queued_ms(lambda: tf.scale_space_kernel(gray, config.frontend), torch),
+        _median_ms(lambda: tf.scale_space_plain(gray, config.frontend), torch))
+    radii = [(len(tf._taps(float(x))) - 1) // 2
+             for x in (config.frontend.init_sigma, *tf._level_sigmas(config.frontend)[1])]
+    bounds["sift", "pose_sift"] = sift_bound(2, 750, 900, radii,
+                                             config.frontend.scales_per_octave,
+                                             config.frontend.num_octaves)
+    print(f"[pose] {smi}: SIFT kernels on the run's two images: every plane and the "
+          f"{n_sift} valid keypoints equal the eager twin's bit for bit, {sift} launches a "
+          f"call; kernels {times['sift', 'pose_sift'][0]:.4f} ms, twin "
+          f"{times['sift', 'pose_sift'][1]:.2f} ms, bound "
+          f"{bounds['sift', 'pose_sift'][0]:.4f} ms (median of {REPEATS}, queued)", flush=True)
     kp = detect_and_describe_batch(images, config.frontend)
     ml, mr, nv = valid_first(match_descriptors(Keypoints(*(x[0] for x in kp)),
                                                Keypoints(*(x[1] for x in kp)), config.frontend))
@@ -2492,13 +2640,16 @@ def main() -> int:
          None, ("ransac", "pose")),       # not a TPU kernel: JAX's RANSAC is plain jnp
         ("ba", "bundle adjustment: every LM step of both starts", csrc + "ba.cuh",
          None, ("ba", "pose_ba")),        # not a TPU kernel: JAX's BA is plain jnp
+        ("sift", "SIFT scale space: Gaussian levels, DoG, response, gradients", csrc + "sift.cuh",
+         None, ("sift", "pose_sift")),    # not a TPU kernel: JAX's is matmuls and jnp
     ]
     at = {"b": "1128x1408 canvas, D=200, block 17", "canvas": "1128x1408 canvas, D=200, block 17",
           "scene": "375x450, D=100, window 17, chunk 20 (the windowed volume)",
           "rectify": "both uint8 750x900x3 images -> 1128x1408 canvas, bilinear, one launch",
           "back": "1128x1408 float32 disparity -> 750x900, nearest",
           "pose": "the posed run_pair's 500 matches, 256 hypotheses of 8, 2 refits on 16",
-          "pose_ba": "the posed run_pair's BA problem: 60 points, 2 starts, 20 LM steps"}
+          "pose_ba": "the posed run_pair's BA problem: 60 points, 2 starts, 20 LM steps",
+          "pose_sift": "the posed run_pair's two 750x900 images, 4 octaves of 3 scales"}
     print(json.dumps({"kernels": [{
         "name": f"{k} {name}",
         "route": "cuda",

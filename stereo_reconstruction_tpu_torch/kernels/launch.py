@@ -19,7 +19,7 @@ import torch
 
 from stereo_reconstruction_tpu_torch.kernels import build
 
-# kernel launches by kernel: "K1", "K2", "K3", "K1b", "K4", "warp", "ransac";
+# kernel launches by kernel: "K1", "K2", "K3", "K1b", "K4", "warp", "ransac", "ba", "sift";
 # the plain twins never count
 LAUNCHES: Counter = Counter()
 

@@ -23,13 +23,15 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from stereo_reconstruction_tpu_torch.config import FrontendConfig
+from stereo_reconstruction_tpu_torch.kernels.launch import on_card
+from stereo_reconstruction_tpu_torch.ops import cuda_sift
 from stereo_reconstruction_tpu_torch.ops.cost_volume import sqrt_rn
 
 _R_ORI = 8      # orientation patch radius (17x17)
@@ -67,15 +69,19 @@ def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     borders: rows first, then columns.
 
     On the CPU each output is a matmul of its window with the taps. On the
-    card it adds its 2r+1 products in tap order, one elementwise pass per
-    tap: cuBLAS picks its matmul kernel by the problem's size, so there an
+    card it is the SIFT level kernel (``ops/cuda_sift.py``, one launch),
+    which adds the 2r+1 products in tap order as ``blur_in_tap_order`` does:
+    cuBLAS picks its matmul kernel by the problem's size, so there an
     image's blur, and its keypoints, moved with the number of images in the
     batch, enough to change a pair's RANSAC winner with its batch-mates. The CPU's matmul does not
     depend on the batch and keeps the rounding the tests against the JAX
     package were measured with."""
-    if img.device.type != "cpu":
-        return blur_in_tap_order(img, sigma)
     shape = img.shape
+    if on_card("sift", img):
+        src = img.reshape(-1, *shape[-2:])
+        out = torch.empty(src.shape, dtype=torch.float32, device=img.device)
+        cuda_sift.level(src, _taps(float(sigma)).tolist(), out)
+        return out.reshape(shape)
     k = torch.from_numpy(_taps(float(sigma)))
     r = (k.shape[0] - 1) // 2
     x = img.reshape(-1, 1, *shape[-2:])
@@ -85,7 +91,7 @@ def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
 
 
 def blur_in_tap_order(img: torch.Tensor, sigma: float) -> torch.Tensor:
-    """``gaussian_blur`` on the card: every output the sum of its 2r+1
+    """The SIFT level kernel's plain twin: every output the sum of its 2r+1
     products, added in tap order by one elementwise pass per tap."""
     taps = [float(t) for t in _taps(float(sigma))]
     r = (len(taps) - 1) // 2
@@ -102,39 +108,67 @@ def blur_in_tap_order(img: torch.Tensor, sigma: float) -> torch.Tensor:
     return acc.reshape(shape)
 
 
-def _build_pyramid(gray: torch.Tensor, config: FrontendConfig):
-    """Per octave: (G (B, s+3, oh, ow), DoG (B, s+2, oh, ow), sigmas)."""
-    s = config.scales_per_octave
-    sig0 = config.init_sigma
-    out = []
-    octave_img = gaussian_blur(gray, sig0)
+def _level_sigmas(config: FrontendConfig):
+    """An octave's level sigmas and the blur from each level to the next."""
+    s, sig0 = config.scales_per_octave, config.init_sigma
+    sigmas = [sig0 * (2.0 ** (i / s)) for i in range(s + 3)]
+    deltas = [float((sigmas[i] ** 2 - sigmas[i - 1] ** 2) ** 0.5) for i in range(1, s + 3)]
+    return sigmas, deltas
+
+
+@functools.lru_cache(maxsize=32)
+def _constants(device: torch.device, config: FrontendConfig, h: int, w: int):
+    """What detection needs besides the images, made once for each device,
+    configuration and image size: the octaves' (oh, ow) (an octave under
+    17x17 ends the pyramid: the orientation stage reads a 17x17 patch), the
+    detection sigmas 1..s, and the octaves' heights and widths on the
+    device."""
+    shapes = []
     for _ in range(config.num_octaves):
-        oh, ow = octave_img.shape[-2:]
-        # the orientation stage reads a 17x17 patch: smaller octaves
-        # cannot hold a keypoint
-        if oh < 17 or ow < 17:
+        if h < 17 or w < 17:
             break
-        sigmas = [sig0 * (2.0 ** (i / s)) for i in range(s + 3)]
+        shapes.append((h, w))
+        h, w = (h + 1) // 2, (w + 1) // 2
+    if not shapes:
+        raise ValueError(f"SIFT needs images of at least 17x17, got {h}x{w}")
+    sigmas, _ = _level_sigmas(config)
+    s = config.scales_per_octave
+    return (tuple(shapes),
+            torch.tensor(sigmas[1:1 + s], dtype=torch.float32, device=device),
+            torch.tensor([sh[0] for sh in shapes], device=device),
+            torch.tensor([sh[1] for sh in shapes], device=device))
+
+
+class ScaleSpace(NamedTuple):
+    """The dense planes detection reads, for B images."""
+    gauss: List[torch.Tensor]      # per octave (B, s+3, oh, ow): the Gaussian levels
+    dog: List[torch.Tensor]        # per octave (B, s, oh, ow): the DoG planes 1..s
+    response: List[torch.Tensor]   # per octave (B, s, oh, ow): |DoG| at kept extrema, else 0
+    mag: torch.Tensor              # (B, n_oct * s, H0, W0): gradient magnitude of the
+    ang: torch.Tensor              # levels 1..s, each octave zero-padded; and its angle
+
+
+def _build_pyramid(gray: torch.Tensor, config: FrontendConfig, blur):
+    """Per octave: the Gaussian stack (B, s+3, oh, ow) and its DoG planes."""
+    s = config.scales_per_octave
+    shapes = _constants(gray.device, config, *gray.shape[-2:])[0]
+    _, deltas = _level_sigmas(config)
+    out = []
+    octave_img = blur(gray, config.init_sigma)
+    for _ in shapes:
         gauss = [octave_img]
-        for i in range(1, s + 3):
-            delta = float((sigmas[i] ** 2 - sigmas[i - 1] ** 2) ** 0.5)
-            gauss.append(gaussian_blur(gauss[-1], delta))
+        for delta in deltas:
+            gauss.append(blur(gauss[-1], delta))
         G = torch.stack(gauss, dim=1)
-        out.append((G, G[:, 1:] - G[:, :-1], sigmas))
+        out.append((G, G[:, 1:] - G[:, :-1]))
         octave_img = G[:, s, ::2, ::2]
     return out
 
 
-def _top_k(values: torch.Tensor, k: int):
-    """Largest k along the last axis, ties to the lower index (lax.top_k)."""
-    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
-def _octave_candidates(dog, sigmas, octave, config: FrontendConfig, K: int):
-    """Top-K scale-space extrema of one octave for each image of the batch."""
+def _octave_response(dog, config: FrontendConfig):
+    """The DoG planes 1..s of one octave and their response: |DoG| at the
+    scale-space extrema that pass the contrast, edge and border tests, else 0."""
     B, ns, oh, ow = dog.shape
-    stride = 2.0 ** octave
     center = dog[:, 1:-1]
     neigh_max = torch.full_like(center, -math.inf)
     neigh_min = torch.full_like(center, math.inf)
@@ -171,13 +205,103 @@ def _octave_candidates(dog, sigmas, octave, config: FrontendConfig, K: int):
                  & ((xs[None, :] >= margin) & (xs[None, :] < ow - margin)))
 
     good = is_extremum & contrast_ok & edge_ok & border_ok
-    response = torch.where(good, torch.abs(center), 0.0)
+    return center, torch.where(good, torch.abs(center), 0.0)
+
+
+def _octave_planes(G, dog, config: FrontendConfig):
+    """One octave's detection planes from its Gaussian stack and DoG planes:
+    the DoG planes 1..s, their response, and the gradient magnitude and
+    angle of the levels 1..s (central differences, wrapping at the border)."""
+    center, response = _octave_response(dog, config)
+    Gsel = G[:, 1:-2]
+    gx = (torch.roll(Gsel, -1, 3) - torch.roll(Gsel, 1, 3)) / 2.0
+    gy = (torch.roll(Gsel, -1, 2) - torch.roll(Gsel, 1, 2)) / 2.0
+    return center, response, sqrt_rn(gx * gx + gy * gy), torch.atan2(gy, gx)
+
+
+def scale_space_plain(gray: torch.Tensor, config: FrontendConfig = FrontendConfig(),
+                      blur=blur_in_tap_order) -> ScaleSpace:
+    """The scale space of (B, H, W) float32 images by PyTorch ops: the SIFT
+    kernels' plain twin with ``blur_in_tap_order``, on any device; the CPU
+    route with ``gaussian_blur``."""
+    pyr = _build_pyramid(gray, config, blur)
+    h0, w0 = pyr[0][0].shape[-2:]
+    centers, responses, mags, angs = [], [], [], []
+    for G, dog in pyr:
+        oh, ow = G.shape[-2:]
+        center, response, mag, ang = _octave_planes(G, dog, config)
+        centers.append(center)
+        responses.append(response)
+        pad = (0, w0 - ow, 0, h0 - oh)
+        mags.append(F.pad(mag, pad))
+        angs.append(F.pad(ang, pad))
+    return ScaleSpace([G for G, _ in pyr], centers, responses, torch.cat(mags, dim=1),
+                      torch.cat(angs, dim=1))
+
+
+def scale_space_kernel(gray: torch.Tensor, config: FrontendConfig = FrontendConfig()
+                       ) -> ScaleSpace:
+    """``scale_space_plain`` by the SIFT kernels (``ops/cuda_sift.py``):
+    one launch a Gaussian level, written into its octave's stack (the next
+    octave's first level read at stride 2 from level s and copied into
+    plane 0 in the same launch), and one launch an octave for the DoG,
+    response and gradient planes."""
+    B, h0, w0 = gray.shape
+    s = config.scales_per_octave
+    shapes = _constants(gray.device, config, h0, w0)[0]
+    _, deltas = _level_sigmas(config)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=gray.device)
+
+    # the detection writes each octave's (oh, ow) corner of its slots
+    grads = torch.zeros(2, B, len(shapes) * s, h0, w0, device=gray.device)
+    out = ScaleSpace([], [], [], grads[0], grads[1])
+    contrast = config.contrast_threshold / s
+    for octave, (oh, ow) in enumerate(shapes):
+        G = empty(B, s + 3, oh, ow)
+        if octave == 0:
+            cuda_sift.level(gray, _taps(float(config.init_sigma)).tolist(), G[:, 0])
+            cuda_sift.level(G[:, 0], _taps(deltas[0]).tolist(), G[:, 1])
+        else:
+            cuda_sift.level(out.gauss[-1][:, s, ::2, ::2], _taps(deltas[0]).tolist(), G[:, 1],
+                            copy=G[:, 0])
+        for i in range(2, s + 3):
+            cuda_sift.level(G[:, i - 1], _taps(deltas[i - 1]).tolist(), G[:, i])
+        dog, response = empty(B, s, oh, ow), empty(B, s, oh, ow)
+        cuda_sift.detect(G, dog, response, out.mag, out.ang, octave * s, contrast,
+                         config.edge_threshold)
+        out.gauss.append(G)
+        out.dog.append(dog)
+        out.response.append(response)
+    return out
+
+
+def scale_space(gray: torch.Tensor, config: FrontendConfig = FrontendConfig()) -> ScaleSpace:
+    """The scale space of (B, H, W) float32 images: the SIFT kernels for a
+    CUDA tensor, 25 launches at the default configuration; PyTorch ops with
+    the matmul blur for a CPU tensor."""
+    if on_card("sift", gray):
+        return scale_space_kernel(gray, config)
+    return scale_space_plain(gray, config, gaussian_blur)
+
+
+def _top_k(values: torch.Tensor, k: int):
+    """Largest k along the last axis, ties to the lower index (lax.top_k)."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _octave_candidates(center, response, sigs, octave, K: int):
+    """Top-K scale-space extrema of one octave for each image of the batch."""
+    B, _, oh, ow = center.shape
+    stride = 2.0 ** octave
     top_vals, top = _top_k(response.reshape(B, -1), K)
     valid = top_vals > 0
     si, yi, xi = top // (oh * ow), (top // ow) % oh, top % ow
 
     # quadratic sub-pixel refinement in x and y
-    b = torch.arange(B, device=dog.device)[:, None]
+    b = torch.arange(B, device=center.device)[:, None]
     c = center[b, si, yi, xi]
 
     def subpix(p, m):
@@ -190,40 +314,26 @@ def _octave_candidates(dog, sigmas, octave, config: FrontendConfig, K: int):
     off_x = subpix(center[b, si, yi, torch.clamp(xi + 1, max=ow - 1)],
                    center[b, si, yi, torch.clamp(xi - 1, min=0)])
 
-    sigs = torch.tensor(sigmas[1: 1 + center.shape[1]], dtype=torch.float32,
-                        device=dog.device)
     kp_x = (xi.to(torch.float32) + off_x) * stride
     kp_y = (yi.to(torch.float32) + off_y) * stride
     return (torch.stack([kp_x, kp_y], dim=-1), sigs[si] * stride, top_vals, valid,
             si, yi, xi)
 
 
-def _detect(gray: torch.Tensor, config: FrontendConfig):
-    """Pyramid, per-octave extrema, global top-K, and the gradient stack
-    (B, n_oct * s, H0, W0) that orientation and descriptors read (each
-    octave's planes zero-padded to the octave-0 shape)."""
+def _detect(gray: torch.Tensor, config: FrontendConfig, space: ScaleSpace):
+    """Per-octave extrema of the scale space, the global top-K, and the
+    gradient stack (B, n_oct * s, H0, W0) that orientation and descriptors
+    read (each octave's planes zero-padded to the octave-0 shape)."""
     K = config.max_keypoints
     s = config.scales_per_octave
-    sig0 = config.init_sigma
-    per_oct, mags, angs, shapes = [], [], [], []
-    pyr = _build_pyramid(gray, config)
-    h0, w0 = pyr[0][0].shape[-2:]
-    for octave, (G, dog, sigmas) in enumerate(pyr):
-        oh, ow = G.shape[-2:]
-        per_oct.append(_octave_candidates(dog, sigmas, octave, config, K))
-        Gsel = G[:, 1:-2]
-        gx = (torch.roll(Gsel, -1, 3) - torch.roll(Gsel, 1, 3)) / 2.0
-        gy = (torch.roll(Gsel, -1, 2) - torch.roll(Gsel, 1, 2)) / 2.0
-        pad = (0, w0 - ow, 0, h0 - oh)
-        mags.append(F.pad(sqrt_rn(gx * gx + gy * gy), pad))
-        angs.append(F.pad(torch.atan2(gy, gx), pad))
-        shapes.append((oh, ow))
+    _, sigs, oh_arr, ow_arr = _constants(gray.device, config, *gray.shape[-2:])
+    per_oct = [_octave_candidates(center, response, sigs, octave, K)
+               for octave, (center, response) in enumerate(zip(space.dog, space.response))]
 
     def cat(i):
         return torch.cat([c[i] for c in per_oct], dim=1)
 
     xy, scale, resp, valid, si, yi, xi = (cat(i) for i in range(7))
-    device = gray.device
     oi = torch.cat([torch.full_like(c[4], o) for o, c in enumerate(per_oct)], dim=1)
     _, top = _top_k(torch.where(valid, resp, -math.inf), K)
 
@@ -231,15 +341,10 @@ def _detect(gray: torch.Tensor, config: FrontendConfig):
         return torch.gather(x, 1, top if x.ndim == 2 else top[..., None].expand(-1, -1, 2))
 
     oi_w = pick(oi)
-    oh_arr = torch.tensor([sh[0] for sh in shapes], device=device)
-    ow_arr = torch.tensor([sh[1] for sh in shapes], device=device)
-    sigs = torch.tensor([sig0 * (2.0 ** (i / s)) for i in range(1, s + 1)],
-                        dtype=torch.float32, device=device)
     return {
         "xy": pick(xy), "scale": pick(scale), "response": pick(resp),
         "valid": pick(valid), "plane": oi_w * s + pick(si), "si": pick(si),
-        "yi": pick(yi), "xi": pick(xi), "mag": torch.cat(mags, dim=1),
-        "ang": torch.cat(angs, dim=1), "sigs": sigs,
+        "yi": pick(yi), "xi": pick(xi), "mag": space.mag, "ang": space.ang, "sigs": sigs,
         "oh": oh_arr[oi_w], "ow": ow_arr[oi_w],
     }
 
@@ -316,12 +421,12 @@ def _descriptor(mag, ang, b, plane, si, yi, xi, sigs, ori, oh, ow):
     return normalise(torch.clamp(normalise(d), max=0.2))
 
 
-def detect_and_describe_batch(images: torch.Tensor,
-                              config: FrontendConfig = FrontendConfig()) -> Keypoints:
-    """Keypoints of a batch of equally sized images, (B, H, W, 3) or
-    (B, H, W); every field gets a leading batch axis."""
-    gray = (rgb_to_gray(images) if images.ndim == 4 else images.to(torch.float32)) / 255.0
-    det = _detect(gray, config)
+def _gray(images: torch.Tensor) -> torch.Tensor:
+    return (rgb_to_gray(images) if images.ndim == 4 else images.to(torch.float32)) / 255.0
+
+
+def _describe(gray: torch.Tensor, config: FrontendConfig, space: ScaleSpace) -> Keypoints:
+    det = _detect(gray, config, space)
     B, K = det["yi"].shape
     b = torch.arange(B, device=gray.device)[:, None].expand(B, K)
     args = (det["mag"], det["ang"], b, det["plane"], det["si"], det["yi"], det["xi"],
@@ -330,6 +435,22 @@ def detect_and_describe_batch(images: torch.Tensor,
     desc = _descriptor(*args, ori, det["oh"], det["ow"])
     return Keypoints(xy=det["xy"], scale=det["scale"], response=det["response"],
                      orientation=ori, descriptors=desc, valid=det["valid"])
+
+
+def detect_and_describe_batch(images: torch.Tensor,
+                              config: FrontendConfig = FrontendConfig()) -> Keypoints:
+    """Keypoints of a batch of equally sized images, (B, H, W, 3) or
+    (B, H, W); every field gets a leading batch axis."""
+    gray = _gray(images)
+    return _describe(gray, config, scale_space(gray, config))
+
+
+def detect_and_describe_plain(images: torch.Tensor,
+                              config: FrontendConfig = FrontendConfig()) -> Keypoints:
+    """``detect_and_describe_batch`` with the scale space of the kernels'
+    plain twin (``scale_space_plain``), on any device."""
+    gray = _gray(images)
+    return _describe(gray, config, scale_space_plain(gray, config))
 
 
 def detect_and_describe(image: torch.Tensor,

@@ -150,6 +150,41 @@ def ba_bound(points: int = 60, steps: int = 20, starts: int = 2):
     return bound(*ba_bytes_ops(points, steps, starts))
 
 
+def sift_bytes_ops(images: int, h: int, w: int, radii, scales: int = 3,
+                   octaves: int = 4):
+    """(bytes, operations) of the SIFT scale-space kernels' 1 + octaves x
+    (scales + 2) level launches and ``octaves`` detection launches on
+    ``images`` (h, w) images, ``radii`` the levels' radii in launch order
+    (the first level's, then an octave's scales + 2). A level reads its
+    source plane and writes its output (the first level of a later octave
+    also writes the copied source) and does 2 (4r + 1) operations an output,
+    its two passes; a detection reads the octave's scales + 3 planes and
+    writes its DoG, response, magnitude and angle planes at the octave's
+    size, with ~100 operations a pixel and scale (26 compares each way, the
+    Hessian test, the gradient and its square root; atan2 counted as 20).
+    The magnitude and angle stacks, octaves x scales planes of (h, w), are
+    zeroed first."""
+    nbytes = ops = 0
+    oh, ow = h, w
+    first, per_octave = radii[0], list(radii[1:])
+    nbytes += 4 * 2 * h * w + 4 * 2 * octaves * scales * h * w
+    ops += 2 * (4 * first + 1) * h * w
+    for octave in range(octaves):
+        px = oh * ow
+        for i, r in enumerate(per_octave):
+            nbytes += 4 * px * (3 if octave > 0 and i == 0 else 2)
+            ops += 2 * (4 * r + 1) * px
+        nbytes += 4 * (scales + 3 + 4 * scales) * px
+        ops += 100 * scales * px
+        oh, ow = (oh + 1) // 2, (ow + 1) // 2
+    return images * nbytes, images * ops
+
+
+def sift_bound(images: int, h: int, w: int, radii, scales: int = 3, octaves: int = 4):
+    """``bound`` of one ``scale_space_kernel`` call (``sift_bytes_ops``)."""
+    return bound(*sift_bytes_ops(images, h, w, radii, scales, octaves))
+
+
 def matcher_roofline(H: int, W: int, D: int, block_size: int = 17,
                      min_disparity: int = 0, WL: int | None = None) -> Dict:
     """The bounds of one pair through the exact matcher on the card, K1

@@ -200,3 +200,18 @@ def test_ba_bound_counts_bytes_and_operations():
     t, what = roofline.ba_bound()
     assert what == "operations" and t == pytest.approx(ops / 67e12 * 1e3) and t < 1e-3
     assert roofline.ba_bytes_ops(128, 20, 1)[1] > roofline.ba_bytes_ops(60, 20, 1)[1]
+
+
+def test_sift_bound_counts_bytes_and_operations():
+    """PERF.md §6's SIFT rows (printed by ``chip_smoke.py --time-kernels
+    sift``): the scale space of 750x900 images at the default radii, bytes
+    bind: 0.1024 ms for a posed request's two images, 0.8192 for 16."""
+    radii = [5, 4, 5, 6, 7, 9]
+    nbytes, ops = roofline.sift_bytes_ops(1, 4, 6, [1, 1], scales=1, octaves=1)
+    # the two levels, the zeroed gradient stacks, the detection
+    assert nbytes == 4 * 2 * 24 + 4 * 2 * 24 + 4 * 2 * 24 + 4 * (4 * 24 + 4 * 24)
+    assert ops == 2 * 5 * 24 + 2 * 5 * 24 + 100 * 24
+    t, what = roofline.sift_bound(2, 750, 900, radii)
+    assert what == "bytes" and round(t, 4) == 0.1024
+    t16, _ = roofline.sift_bound(16, 750, 900, radii)
+    assert round(t16, 4) == 0.8192 and t16 == pytest.approx(8 * t)

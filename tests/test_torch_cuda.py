@@ -1315,3 +1315,95 @@ def test_posed_run_pair_refuses_a_ba_config_before_sift(cuda, monkeypatch, field
     cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, **{field: value}))
     with pytest.raises(ValueError, match="BA kernel"):
         run_pair(pair, cfg, device=cuda)
+
+
+def _posed_images(n, h=750, w=900):
+    """n images of the posed scenes at the cell's size: each scene's left and
+    right views in turn, uint8 (n, h, w, 3) on the CPU."""
+    rng = np.random.default_rng(7)
+    images = []
+    while len(images) < n:
+        images += list(nonplanar_scene(rng, h, w)[:2])
+    return torch.from_numpy(np.stack(images[:n]))
+
+
+@pytest.mark.parametrize("batch", [2, 16])
+def test_sift_kernels_equal_the_eager_twin_on_card(cuda, batch):
+    """The SIFT kernels' planes (every Gaussian level, DoG, response,
+    magnitude and angle) and the final ``Keypoints`` equal the eager card
+    path's (``scale_space_plain`` with ``blur_in_tap_order``) bit for bit at
+    750x900, for a posed request's two images and a batch of 16; 25
+    launches a call. The keypoints are compared with PyTorch's deterministic
+    ``scatter_add_``, the planes as they are."""
+    from stereo_reconstruction_tpu_torch.config import FrontendConfig
+    from stereo_reconstruction_tpu_torch.ops import features as tf
+
+    cfg = FrontendConfig()
+    images = _posed_images(batch).to(cuda)
+    gray = tf._gray(images)
+    before = LAUNCHES["sift"]
+    got = tf.scale_space_kernel(gray, cfg)
+    assert LAUNCHES["sift"] == before + 25 and len(got.dog) == 4
+    want = tf.scale_space_plain(gray, cfg)
+    for field in ("gauss", "dog", "response"):
+        for o, (g, w) in enumerate(zip(getattr(got, field), getattr(want, field))):
+            assert torch.equal(g, w), (field, o, int((g != w).sum()))
+    assert torch.equal(got.mag, want.mag)
+    assert torch.equal(got.ang, want.ang), int((got.ang != want.ang).sum())
+    # orientation's and the descriptor's scatter_add_ histograms add by
+    # atomics on the card, in any order, on both routes alike
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        kg = tf.detect_and_describe_batch(images, cfg)
+        kw = tf.detect_and_describe_plain(images, cfg)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for field in kg._fields:
+        assert torch.equal(getattr(kg, field), getattr(kw, field)), field
+    assert int(kg.valid.sum()) > 400 * batch
+
+
+def test_sift_launches_25_times_a_call(cuda):
+    """``detect_and_describe_batch`` at the default ``FrontendConfig``
+    launches the SIFT kernels 25 times: 1 + 4 x 5 levels and 4 detections;
+    ORB's blurs launch the level kernel once each."""
+    from stereo_reconstruction_tpu_torch.ops import features as tf
+
+    images = _posed_images(2).to(cuda)
+    for _ in range(2):
+        before = LAUNCHES["sift"]
+        tf.detect_and_describe_batch(images)
+        assert LAUNCHES["sift"] == before + 25
+    before = LAUNCHES["sift"]
+    img = tf.rgb_to_gray(images[0])
+    assert torch.equal(tf.gaussian_blur(img, 1.5), tf.blur_in_tap_order(img, 1.5))
+    assert LAUNCHES["sift"] == before + 1
+
+
+def test_posed_run_pair_on_the_sift_kernels_poses_as_the_eager_twin(cuda, monkeypatch):
+    """A posed ``run_pair`` at the cell's 750x900 on the SIFT kernels gives
+    the pose, the disparity and the depth of the eager card path bit for
+    bit. Both run with PyTorch's deterministic ``scatter_add_``: the
+    descriptors' histograms add by atomics on the card otherwise. A first
+    call captures the pose stage's graphs outside that mode."""
+    from stereo_reconstruction_tpu_torch.ops import features as tf
+
+    left, right, K, _, _, _, _ = nonplanar_scene(np.random.default_rng(0), 750, 900)
+    K = K.astype(np.float32)
+    pair = StereoPair(left, right, K, K, name="posed")
+    cfg = PipelineConfig()
+    run_pair(pair, cfg, device=cuda)
+    before = LAUNCHES["sift"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got = run_pair(pair, cfg, device=cuda)
+        assert LAUNCHES["sift"] == before + 25
+        monkeypatch.setattr(tf, "scale_space", tf.scale_space_plain)
+        want = run_pair(pair, cfg, device=cuda)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert LAUNCHES["sift"] == before + 25
+    for field in ("pose", "pose_ransac", "fundamental"):
+        assert torch.equal(getattr(got.pose, field), getattr(want.pose, field)), field
+    assert np.array_equal(got.disparity, want.disparity)
+    assert np.array_equal(got.depth, want.depth)
